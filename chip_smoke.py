@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+1. builds both CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
+   in parallel, beside the header check of step 2) and prints the build
+   seconds and ptxas resource lines;
+2. holds the kernels' fixed-point header, compiled for the card, against
+   the port's PyTorch fixed point: tanh/sigmoid on every int16 input for
+   integer_bits 0..15, the LayerNorm rsqrt multiplier, MBQM;
+3. holds the int8 GEMM kernel bit for bit against its plain version on the
+   card at the serving shapes (M in {B, B*T}, K in {2048, 640}, N = 8192),
+   ragged shapes and the int8/int16 epilogues;
+4. holds the sequence kernel against its plain version: all 16 LSTM
+   variants at small widths, then a full-width LN+projection layer from
+   the port's own recipe, unmasked and masked, each from the reset state
+   and continued from the carried (nonzero) state, at the decode shape
+   (B = 4, T = 1) too;
+5. serves full-width ``lstm-rnnt`` (10 layers, d_rnn 2048, d_proj 640,
+   vocab 4096) through the port's serve path: seeded init, calibration,
+   quantization, prefill of 4 x 32 tokens and 16 greedy tokens; each
+   kernel's launch counter must rise by exactly 10 x (1 + 16), and the
+   integer states of every layer after the prefill and after each decode
+   step, and every greedy token, must equal a plain-version run of the
+   stack fed the same tokens; then the same serve is repeated to show the
+   spread of tokens/s;
+6. times each kernel with CUDA events (L2 flushed, the card held busy while
+   the host enqueues the call, so the span is device time) beside its plain
+   version, its bound and, for the GEMM, torch._int_mm;
+7. prints the card's name and power limit, the kernels' JSON line and, as
+   the last line, ``{"ok": true, "device": {...}}``.
+
+Any mismatch, build failure or launch error raises, and the script exits
+non-zero without the last line.  Without a CUDA device it fails at once.
+Full results also go to ``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+SM_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock; a lower clock sleeps longer
+B, T, GEN = 4, 32, 16
+REPEATS = 9  # repeated serves for the spread of tokens/s
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def require_equal(what, got, want):
+    """Raise unless two integer tensors are identical; return max |diff|."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    bad = int((diff != 0).sum())
+    if bad:
+        idx = [int(i) for i in torch.nonzero(diff)[0]]
+        raise AssertionError(
+            f"{what}: {bad} of {diff.numel()} elements differ; first at "
+            f"{idx}: kernel {got[tuple(idx)].item()} vs plain "
+            f"{want[tuple(idx)].item()}")
+    return int(diff.max()) if diff.numel() else 0
+
+
+def cold_ms(fn, iters, flush):
+    """``(device ms, host ms)`` of one call of ``fn``, means over ``iters``.
+
+    Before each timed call the L2 cache is flushed, then the card is held
+    busy by ``torch.cuda._sleep`` for three times the host's time to enqueue
+    the call (its argument checks, ctypes call and allocations), so the
+    start event fires with the call's launches already queued: the span
+    between the CUDA events is device time, not host time.  Where a call
+    enqueues for longer than the sleep (a plain version's many small ops),
+    its remaining host gaps stay in the span."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    host_s = sorted(host)[1]
+    cycles = int(min(max(3 * host_s, 1e-4), 0.25) * SM_CYCLES_PER_S)
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(cycles)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters, host_s * 1e3
+
+
+def bound(bytes_moved, int8_ops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = int8_ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gemm_operands(M, K, N, gen, dev):
+    import torch
+
+    x = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    fold = torch.randint(-(2**20), 2**20, (N,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    m0 = torch.randint(1 << 30, 2**31 - 1, (N,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    shift = torch.randint(-20, 2, (N,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    return x, w, fold, m0, shift
+
+
+def check_gemm(dev):
+    import torch
+    from repro_torch.kernels import int8_matmul as K1
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    err = 0
+    cases = [(m, k, 8192, torch.int32) for m in (B, B * T) for k in (2048, 640)]
+    cases += [(1, 1, 1, torch.int32), (5, 37, 130, torch.int32),
+              (129, 641, 8191, torch.int32), (33, 2047, 100, torch.int32),
+              (B * T, 640, 8192, torch.int8), (B, 2048, 8192, torch.int16),
+              (7, 99, 61, torch.int8), (65, 70, 129, torch.int16),
+              (129, 640, 8192, torch.int32), (13, 2048, 8192, torch.int8),
+              (4, 48, 80, torch.int16), (100, 272, 208, torch.int32)]
+    for M, Kd, N, odt in cases:
+        x, w, fold, m0, shift = gemm_operands(M, Kd, N, gen, dev)
+        got = K1.int8_matmul(x, w, fold, m0, shift, out_dtype=odt, zp_out=3)
+        want = K1.int8_matmul_plain(x, w, fold, m0, shift, out_dtype=odt,
+                                    zp_out=3)
+        err = max(err, require_equal(f"int8_matmul {M}x{Kd}x{N} {odt}",
+                                     got, want))
+    # the extreme accumulation of a full-depth int8 product (2**25)
+    x = torch.full((B, 2048), -128, dtype=torch.int8, device=dev)
+    w = torch.full((2048, 8192), -128, dtype=torch.int8, device=dev)
+    fold = torch.zeros(8192, dtype=torch.int32, device=dev)
+    err = max(err, require_equal("int8_matmul extremes",
+                                 K1.int8_matmul(x, w, fold),
+                                 K1.int8_matmul_plain(x, w, fold)))
+    torch.cuda.synchronize()
+    log(f"[check] int8_matmul: {len(cases) + 1} shapes bit-exact vs plain")
+    return err
+
+
+def quantized_layer(variant, d_in, H, d_proj, dev, seed, calib_T=6):
+    """A layer quantized by the port's own calibration + recipe on ``dev``."""
+    import torch
+    from repro_torch.core import recipe as R
+    from repro_torch.core.calibrate import Stats, TapCollector
+    from repro_torch.models import lstm as L
+
+    cfg = L.LSTMConfig(d_in, H, d_proj if variant.use_projection else 0,
+                       variant)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = L.init_lstm_params(gen, cfg, dev)
+    if variant.use_layernorm:
+        for g in params["L"]:
+            params["L"][g] = 1.0 + 0.3 * torch.randn(
+                H, generator=gen, device=dev)
+    xs = 0.8 * torch.randn((B, calib_T, d_in), generator=gen, device=dev)
+    col = TapCollector()
+    with torch.no_grad():
+        L.lstm_layer(params, cfg, xs, collector=col)
+    stats = Stats()
+    stats.merge(col.snapshot())
+    arrays, spec = R.quantize_lstm_layer(params, cfg, stats)
+    return arrays, spec, xs
+
+
+def run_scan_pair(arrays, spec, xs_q, valid_len=None, state0=None):
+    """(kernel result, plain result) of the recurrent stage on one input,
+    from ``state0`` (the reset state when None)."""
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import quant_lstm_scan as K2
+    from repro_torch.models import quant_lstm as QL
+
+    Bx, Tx, d_in = xs_q.shape
+    acc = K1.int8_matmul_plain(xs_q.reshape(Bx * Tx, d_in), arrays["W_cat"],
+                               arrays["fold_x_cat"]).reshape(Bx, Tx, -1)
+    if state0 is None:
+        state0 = QL.initial_recurrent_state(spec, Bx, xs_q.device)
+    got = K2.quant_recurrent_seq_scan(arrays, spec, acc, state0, valid_len)
+    want = K2.quant_recurrent_seq_scan_plain(arrays, spec, acc, state0,
+                                             valid_len)
+    return got, want
+
+
+def compare_scan(what, got, want):
+    err = require_equal(f"{what} ys", got[0], want[0])
+    for name, g, w in zip(("h", "c"), got[1], want[1]):
+        err = max(err, require_equal(f"{what} {name}", g, w))
+    return err
+
+
+def check_layer(what, arrays, spec, xs_q, vl_full, vl_next, t_next):
+    """The layer over ``xs_q`` from the reset state, then over its first
+    ``t_next`` steps again from the carried (nonzero) final state; each
+    unmasked and masked.  Returns the largest difference (0)."""
+    got, want = run_scan_pair(arrays, spec, xs_q)
+    err = compare_scan(what, got, want)
+    err = max(err, compare_scan(f"{what} masked", *run_scan_pair(
+        arrays, spec, xs_q, vl_full)))
+    carried = want[1]
+    if not any(bool(leaf.any()) for leaf in carried):
+        raise AssertionError(f"{what}: the carried state is all zero")
+    nxt = xs_q[:, :t_next].contiguous()
+    err = max(err, compare_scan(f"{what} carried", *run_scan_pair(
+        arrays, spec, nxt, state0=carried)))
+    return max(err, compare_scan(f"{what} carried masked", *run_scan_pair(
+        arrays, spec, nxt, vl_next, state0=carried)))
+
+
+def check_scan(dev):
+    import torch
+    from repro_torch.models import lstm as L
+    from repro_torch.models import quant_lstm as QL
+
+    def lens(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    err = 0
+    for i, variant in enumerate(L.ALL_VARIANTS):
+        for d_in, H, d_proj in ((10, 13, 6), (24, 40, 12), (24, 48, 10)):
+            arrays, spec, xs = quantized_layer(variant, d_in, H, d_proj, dev,
+                                               seed=100 + i)
+            xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+            err = max(err, check_layer(f"{variant.name} H={H}", arrays, spec,
+                                       xs_q, lens(6, 3, 0, 1), lens(2, 1, 0, 2),
+                                       2))
+    log("[check] quant_lstm_scan: 16 variants x 3 widths, from the reset and "
+        "the carried state, plain and masked, bit-exact vs plain")
+    variant = L.LSTMVariant(use_layernorm=True, use_projection=True)
+    arrays, spec, xs = quantized_layer(variant, 640, 2048, 640, dev, seed=7,
+                                       calib_T=T)
+    xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+    err = max(err, check_layer("full-width layer", arrays, spec, xs_q,
+                               lens(T, 17, 1, 0), lens(1, 0, 1, 0), 1))
+    torch.cuda.synchronize()
+    log("[check] quant_lstm_scan: full-width LN+projection layer "
+        "(H=2048, d_proj=640, B=4): T=32 from the reset state and T=1 (the "
+        "decode shape) from its carried state, plain and masked, bit-exact")
+    return err, (arrays, spec, xs_q)
+
+
+def check_fixedpoint(dev):
+    """The kernels' fixed-point header on the card against the PyTorch
+    port (which the CPU tests hold against the JAX reference)."""
+    from repro_torch.kernels import fixedpoint_check as FC
+
+    c = FC.cases(seed=3)
+    got = FC.on_card(c, dev)
+    for key, want in FC.expected(c, dev).items():
+        require_equal(f"fixedpoint.cuh {key}", got[key], want)
+    log(f"[check] fixedpoint.cuh on the card: tanh_q15/sigmoid_q15 on all "
+        f"65536 inputs x integer_bits {FC.INTEGER_BITS[0]}.."
+        f"{FC.INTEGER_BITS[-1]}, {len(c['v'])} rsqrt multipliers, "
+        f"{len(c['x'])} MBQMs equal the PyTorch port")
+
+
+def plain_forward(params, qlayers, tokens, states):
+    """``lstm_lm.quant_forward`` with every kernel swapped for its plain
+    version (the reference for the served run).  Returns the last
+    position's logits and the new ``{"h": [...], "c": [...]}`` states."""
+    import torch
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import quant_lstm_scan as K2
+    from repro_torch.layers import embedding as emb
+    from repro_torch.models import quant_lstm as QL
+
+    x = emb.embed_tokens(params, tokens).float()
+    new = {"h": [], "c": []}
+    for i, (arrays, spec) in enumerate(qlayers):
+        x_q = QL.quantize_input(x, spec.s_x, spec.zp_x)
+        Bx, Tx, d_in = x_q.shape
+        acc = K1.int8_matmul_plain(x_q.reshape(Bx * Tx, d_in),
+                                   arrays["W_cat"], arrays["fold_x_cat"])
+        ys, (h, c) = K2.quant_recurrent_seq_scan_plain(
+            arrays, spec, acc.reshape(Bx, Tx, -1),
+            (states["h"][i], states["c"][i]))
+        x = QL.dequantize_output(ys, spec.s_h, spec.zp_h_out)
+        new["h"].append(h)
+        new["c"].append(c)
+    logits = emb.logits_head(params, x.to(torch.bfloat16))
+    return logits[:, -1], new
+
+
+def compare_states(what, got, want):
+    for key in ("h", "c"):
+        for i, (g, w) in enumerate(zip(got[key], want[key], strict=True)):
+            require_equal(f"{what} layer {i} {key}", g, w)
+
+
+def serve_full_width(dev):
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import quant_lstm_scan as K2
+    from repro_torch.launch import serve
+    from repro_torch.models import lstm_lm
+
+    cfg = get_config("lstm-rnnt")
+    t0 = time.perf_counter()
+    params, qlayers = serve.build_model(cfg, B, T, dev)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: init + calibration + quantization of "
+        f"{len(qlayers)} layers in {time.perf_counter() - t0:.1f}s")
+    prompt = serve.random_prompt(cfg, B, T, dev)
+    K1.launches = 0
+    K2.launches = 0
+    res = serve.serve(params, qlayers, cfg, prompt, GEN)
+    counts = {"int8_matmul": K1.launches, "quant_lstm_scan": K2.launches}
+    expect = cfg.n_layers * (1 + GEN)
+    log(f"[serve] launches during serve: {counts} (expected {expect} each)")
+    if counts != {"int8_matmul": expect, "quant_lstm_scan": expect}:
+        raise AssertionError(f"launch counts {counts} != {expect} each")
+    if res.launches != counts:
+        raise AssertionError(f"serve() counted {res.launches}")
+    toks = res.tokens
+    if tuple(toks.shape) != (B, GEN) or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"bad generated tokens {toks}")
+    log(f"[serve] prompt tokens/s: {B * T / res.prefill_s:.1f}  "
+        f"decode tokens/s: {B * GEN / res.decode_s:.1f}  "
+        f"(prefill {res.prefill_s * 1e3:.2f} ms, decode "
+        f"{res.decode_s * 1e3 / GEN:.2f} ms/step, host clock)")
+    log("[serve] sample:", toks[0].tolist())
+    # the served run, step by step, against the plain-version stack
+    with torch.no_grad():
+        logits, st = plain_forward(
+            params, qlayers, prompt,
+            lstm_lm.init_quant_decode_state(qlayers, B, dev))
+        compare_states("prefill", res.states[0], st)
+        for i in range(GEN):
+            tok = logits.argmax(-1)[:, None]
+            require_equal(f"decode step {i} input",
+                          res.decode_inputs[:, i:i + 1], tok)
+            logits, st = plain_forward(params, qlayers, tok, st)
+            compare_states(f"decode step {i}", res.states[i + 1], st)
+        require_equal("last greedy token", toks[:, -1:],
+                      logits.argmax(-1)[:, None])
+    if (K1.launches, K2.launches) != (expect, expect):
+        raise AssertionError("the plain-version stack launched a kernel")
+    log(f"[serve] integer states of all {cfg.n_layers} layers after the "
+        f"prefill and after each of the {GEN} decode steps, and every greedy "
+        "token, equal the plain-version stack")
+    # the spread of the host-clock metrics: the same serve, repeated
+    reps = [serve.serve(params, qlayers, cfg, prompt, GEN)
+            for _ in range(REPEATS)]
+    spread = {
+        "prompt_tok_s": sorted(B * T / r.prefill_s for r in reps),
+        "decode_tok_s": sorted(B * GEN / r.decode_s for r in reps)}
+    if any(not torch.equal(r.tokens, toks) for r in reps):
+        raise AssertionError("a repeated serve generated other tokens")
+    for name, vals in spread.items():
+        log(f"[serve] {name} over {REPEATS} repeats: min {vals[0]:.1f} "
+            f"median {vals[REPEATS // 2]:.1f} max {vals[-1]:.1f}")
+    return counts, res, cfg, spread
+
+
+def time_kernels(dev, layer, cfg):
+    import torch
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import quant_lstm_scan as K2
+    from repro_torch.models import quant_lstm as QL
+
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    gemm = []
+    for M, Kd in ((B * T, cfg.d_model), (B * T, 640), (B, cfg.d_model),
+                  (B, 640)):
+        N = 8192
+        x, w, fold, _, _ = gemm_operands(M, Kd, N, gen, dev)
+        row = {"M": M, "K": Kd, "N": N}
+        row["ms"], row["host_ms"] = cold_ms(
+            lambda: K1.int8_matmul(x, w, fold), 50, flush)
+        row["plain_ms"], _ = cold_ms(
+            lambda: K1.int8_matmul_plain(x, w, fold), 10, flush)
+        if M > 16 and Kd % 8 == 0 and N % 8 == 0:
+            row["library_ms"], _ = cold_ms(lambda: torch._int_mm(x, w), 50,
+                                           flush)
+        else:
+            row["library_ms"] = None  # torch._int_mm refuses M <= 16
+        row["bound_ms"], row["bound_by"] = bound(
+            M * Kd + Kd * N + 4 * N + 4 * M * N, 2 * M * N * Kd)
+        gemm.append(row)
+        log(f"[time] int8_matmul {M}x{Kd}x{N}: {row['ms']:.4f} ms (host "
+            f"enqueue {row['host_ms']:.4f} ms), plain {row['plain_ms']:.4f} "
+            f"ms, _int_mm {row['library_ms']}, bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']})")
+
+    arrays, spec, xs_q = layer
+    scan = []
+    for Tx in (T, 1):
+        xq = xs_q[:, :Tx].contiguous()
+        acc = K1.int8_matmul_plain(xq.reshape(B * Tx, -1), arrays["W_cat"],
+                                   arrays["fold_x_cat"]).reshape(B, Tx, -1)
+        st = QL.initial_recurrent_state(spec, B, dev)
+        row = {"B": B, "T": Tx, "H": spec.cfg_d_hidden, "d_out": spec.d_out}
+        row["ms"], row["host_ms"] = cold_ms(
+            lambda: K2.quant_recurrent_seq_scan(arrays, spec, acc, st), 10,
+            flush)
+        row["plain_ms"], _ = cold_ms(
+            lambda: K2.quant_recurrent_seq_scan_plain(arrays, spec, acc, st),
+            2, flush)
+        row["library_ms"] = None
+        GH, H, d = acc.shape[-1], spec.cfg_d_hidden, spec.d_out
+        n_bytes = (B * Tx * GH * 4 + d * GH + GH * 4 + 4 * H * 6 + H * d
+                   + d * 4 + 2 * (B * d + B * H * 2) + B * Tx * d)
+        row["bound_ms"], row["bound_by"] = bound(
+            n_bytes, 2 * B * Tx * (d * GH + H * d))
+        scan.append(row)
+        log(f"[time] quant_lstm_scan B={B} T={Tx}: {row['ms']:.4f} ms (host "
+            f"enqueue {row['host_ms']:.4f} ms), plain {row['plain_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return gemm, scan
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing is run on the CPU",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import quant_lstm_scan as K2
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    secs = build.build_all(build.KERNELS + ("fixedpoint_check",))
+    log(f"[build] {secs} ({time.perf_counter() - t0:.1f}s wall, parallel)")
+    for name in build.KERNELS:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    check_fixedpoint(dev)
+    err1 = check_gemm(dev)
+    err2, layer = check_scan(dev)
+    counts, res, cfg, spread = serve_full_width(dev)
+    gemm, scan = time_kernels(dev, layer, cfg)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    head1, head2 = gemm[0], scan[0]
+    kernels = [
+        {"name": "int8_matmul", "route": "cuda", "source": K1.SOURCE,
+         "replaces": K1.REPLACES, "launches": counts["int8_matmul"],
+         "max_abs_err": err1, "ms": head1["ms"],
+         "plain_ms": head1["plain_ms"], "bound_ms": head1["bound_ms"],
+         "bound_by": head1["bound_by"], "library_ms": head1["library_ms"],
+         "at": "M=B*T=128 K=2048 N=8192 int32 out (layer-0 prefill)",
+         "shapes": gemm},
+        {"name": "quant_lstm_scan", "route": "cuda", "source": K2.SOURCE,
+         "replaces": K2.REPLACES, "launches": counts["quant_lstm_scan"],
+         "max_abs_err": err2, "ms": head2["ms"],
+         "plain_ms": head2["plain_ms"], "bound_ms": head2["bound_ms"],
+         "bound_by": head2["bound_by"], "library_ms": None,
+         "at": "B=4 T=32 H=2048 d_proj=640 LN+projection (prefill layer)",
+         "shapes": scan},
+    ]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump({"gpu": smi, "build_s": secs, "kernels": kernels,
+                   "serve": {"prefill_s": res.prefill_s,
+                             "decode_s": res.decode_s, "batch": B,
+                             "prompt_len": T, "gen": GEN,
+                             "repeats": spread,
+                             "sample": res.tokens[0].tolist()}}, f, indent=1)
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,69 @@
+"""Carry weights across from the reference package's numpy exports.
+
+Both functions take plain numpy (what ``jax.device_get`` returns) and
+Python containers, so this module needs neither JAX nor the reference
+package:
+
+* ``params_from_numpy``: the reference LM's float param tree -> the port's
+  params (bf16 stays bf16, float32 stays float32);
+* ``qlayers_from_numpy``: the reference's quantized ``[(arrays, spec)]``
+  list, each spec given as ``dataclasses.asdict(spec)`` -> the port's
+  ``(arrays, QLSTMSpec)`` list.
+
+With these, both packages compute on the same weights.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from .core.recipe import GateSpec, QLSTMSpec
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """numpy (or ml_dtypes bfloat16) array -> tensor of the same dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # exact through float32
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def _tree(x, device):
+    if isinstance(x, dict):
+        return {k: _tree(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree(v, device) for v in x)
+    return tensor_from_numpy(x, device)
+
+
+def params_from_numpy(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """The reference LM's float params (numpy tree) -> the port's params."""
+    return _tree(params, device)
+
+
+def _pair(v):
+    return None if v is None else (int(v[0]), int(v[1]))
+
+
+def spec_from_dict(d: Dict[str, Any]) -> QLSTMSpec:
+    """``dataclasses.asdict`` of a reference QLSTMSpec -> the port's spec."""
+    if "use_cifg" not in d:
+        raise NotImplementedError("only LSTM layer specs are ported")
+    gates = tuple(
+        (g, GateSpec(eff_x=_pair(gs["eff_x"]), eff_h=_pair(gs["eff_h"]),
+                     eff_c=_pair(gs["eff_c"]), ln_out=_pair(gs["ln_out"])))
+        for g, gs in d["gates"])
+    fields = {k: v for k, v in d.items() if k != "gates"}
+    for k in ("eff_m", "eff_proj"):
+        fields[k] = _pair(fields[k])
+    return QLSTMSpec(gates=gates, **fields)
+
+
+def qlayers_from_numpy(qlayers, device="cpu"
+                       ) -> List[Tuple[Dict[str, Any], QLSTMSpec]]:
+    """``[(numpy arrays tree, asdict(spec))]`` -> the port's quantized layers."""
+    return [(_tree(arrays, device), spec_from_dict(spec))
+            for arrays, spec in qlayers]

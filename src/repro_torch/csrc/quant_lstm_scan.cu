@@ -1,0 +1,388 @@
+// Persistent integer LSTM sequence kernel: the whole recurrent stage of one
+// layer in ONE launch, with the time loop inside the kernel.
+//
+// Replaces the TPU kernel `quant_recurrent_seq_scan_pallas`
+// (repro/kernels/quant_lstm_scan.py, body `_scan_kernel`), whose body traces
+// `recurrent_step_jnp` (repro/kernels/ref.py).  Per step t, for each row b:
+//   acc_h = h @ R_cat + fold_hb_cat                      (int8 -> int32)
+//   gate_g = sat16(mbqm(acc_x[b,t,g], eff_x) sat+ mbqm(acc_h[g], eff_h)
+//                  [sat+ mbqm(P_g * c, eff_c)])  -> integer LayerNorm
+//   c = sat16(rdbpot(i*z, 30 - n_c) sat+ rdbpot(f*c, 15)); o finished on c
+//   m = sat8(mbqm(o * tanh(c), eff_m) + zp_m); h = projection(m) or m
+//   ys[b, t] = h
+// All 16 LSTM variants run through runtime flags (use_layernorm,
+// use_projection, use_peephole, use_cifg; G = 3 or 4 gate blocks).  With
+// `valid_len`, row b is frozen for t >= valid_len[b] and still writes its
+// unchanged h to ys[b, t], as the TPU kernel does.
+//
+// What bounds it on an H100: every step re-reads R_cat (d_out x 4H int8,
+// 5.2 MB at full width) and W_proj (H x d_proj, 1.3 MB), which no SM's
+// shared memory can hold, and the steps are sequential.  The ideal is
+// bytes: the weights once per step from L2.  This first design gives each
+// batch row its own thread block (rows are independent), so there is no
+// grid-wide barrier: h, c, m, the row's 4H int32 gate accumulators and the
+// LayerNorm statistics stay in shared memory for the whole sweep, and each
+// step streams R_cat and W_proj with coalesced 16-byte loads, several in
+// flight per thread, multiplied 4 rows at a time with __dp4a.  It reads
+// the weights B times per step and uses only B SMs; splitting gate columns
+// across blocks with a grid barrier for LayerNorm and projection is the
+// later performance design.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fixedpoint.cuh"
+#include "int8_pack.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPartInts = 16 * kThreads;  // matvec partial sums (32 KB)
+
+struct ScanParams {
+  const int32_t* acc_x;  // (B, T, G*H): hoisted input accumulator
+  const int8_t* R;       // (d_out, G*H)
+  const int32_t* fold_hb;
+  const int16_t* P[4];  // per gate slot: peephole weights (i, f, o) or null
+  const int16_t* L[4];  // per gate slot: LayerNorm weights or null
+  const int32_t* Lb[4];
+  const int8_t* W_proj;  // (H, d_out) or null
+  const int32_t* fold_proj;
+  const int8_t* h0;          // (B, d_out)
+  const int16_t* c0;         // (B, H)
+  const int32_t* valid_len;  // (B,) or null
+  int8_t* ys;                // (B, T, d_out)
+  int8_t* h_out;
+  int16_t* c_out;
+  int T, H, d_out, G;
+  int use_ln, use_proj, use_ph, cifg;
+  int slot_i, slot_f, slot_z, slot_o;  // column block of each gate (-1: none)
+  int eff_x[4][2], eff_h[4][2], eff_c[4][2], ln_out[4][2];
+  int eff_m[2], eff_proj[2];
+  int zp_m, zp_h_out, cell_int_bits;
+};
+
+// out[col] = wrap32(sum_k v[k] * W[k, col] + bias[col]) for col < N, with v
+// an int8 row vector in shared memory (16-byte aligned).  Each work item
+// owns WIDTH adjacent columns: 16 (one 16-byte load per row, 4 rows at a
+// time packed by `transpose4` into __dp4a operands), 4 or 1 (ragged
+// widths).  Spare threads split K, and the partial sums meet in `part`.
+template <int WIDTH>
+__device__ void matvec_cols(const int8_t* v, int K, const int8_t* __restrict__ W,
+                            int N, const int32_t* __restrict__ bias,
+                            int32_t* out, int32_t* part) {
+  const int groups = N / WIDTH;
+  int ks_n = kThreads / groups;
+  if (ks_n > kPartInts / N) ks_n = kPartInts / N;
+  if (ks_n < 1) ks_n = 1;
+  for (int item = threadIdx.x; item < groups * ks_n; item += kThreads) {
+    const int g = item % groups;
+    const int ks = item / groups;
+    const int8_t* Wg = W + (size_t)g * WIDTH;
+    int acc[WIDTH];
+#pragma unroll
+    for (int i = 0; i < WIDTH; ++i) acc[i] = 0;
+    int k_tail = 0;  // rows below k_tail were handled 4 at a time
+    if (WIDTH == 16) {
+      k_tail = K & ~3;
+#pragma unroll 2
+      for (int k = 4 * ks; k < k_tail; k += 4 * ks_n) {
+        int4 r[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          r[j] = __ldg(reinterpret_cast<const int4*>(Wg + (size_t)(k + j) * N));
+        const int vk = *reinterpret_cast<const int*>(v + k);
+        int cols[4];
+        pack::transpose4(r[0].x, r[1].x, r[2].x, r[3].x, cols);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[j] = __dp4a(cols[j], vk, acc[j]);
+        pack::transpose4(r[0].y, r[1].y, r[2].y, r[3].y, cols);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[4 + j] = __dp4a(cols[j], vk, acc[4 + j]);
+        pack::transpose4(r[0].z, r[1].z, r[2].z, r[3].z, cols);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[8 + j] = __dp4a(cols[j], vk, acc[8 + j]);
+        pack::transpose4(r[0].w, r[1].w, r[2].w, r[3].w, cols);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[12 + j] = __dp4a(cols[j], vk, acc[12 + j]);
+      }
+      if (ks != 0) k_tail = K;  // the K % 4 tail rows belong to split 0
+    }
+    for (int k = k_tail + ks; k < K; k += (WIDTH == 16 ? 1 : ks_n)) {
+      const int vk = v[k];
+#pragma unroll
+      for (int i = 0; i < WIDTH; ++i) acc[i] += vk * (int)Wg[(size_t)k * N + i];
+    }
+#pragma unroll
+    for (int i = 0; i < WIDTH; ++i) {
+      const int col = g * WIDTH + i;
+      if (ks_n == 1) {
+        out[col] = fp::wrap32((int64_t)acc[i] + bias[col]);
+      } else {
+        part[ks * N + col] = acc[i];
+      }
+    }
+  }
+  if (ks_n > 1) {
+    __syncthreads();
+    for (int col = threadIdx.x; col < N; col += kThreads) {
+      int64_t s = bias[col];
+      for (int ks = 0; ks < ks_n; ++ks) s += part[ks * N + col];
+      out[col] = fp::wrap32(s);
+    }
+  }
+}
+
+__device__ void matvec(const int8_t* v, int K, const int8_t* __restrict__ W,
+                       int N, const int32_t* __restrict__ bias, int32_t* out,
+                       int32_t* part) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(W);
+  if (N % 16 == 0 && (addr & 15) == 0) {
+    matvec_cols<16>(v, K, W, N, bias, out, part);
+  } else if (N % 4 == 0 && (addr & 3) == 0) {
+    matvec_cols<4>(v, K, W, N, bias, out, part);
+  } else {
+    matvec_cols<1>(v, K, W, N, bias, out, part);
+  }
+}
+
+struct LNStats {
+  int32_t sum[4];
+  int32_t m0[4];
+  int32_t shift[4];
+  int deg[4];
+  long long red_s[kWarps][4];
+  long long red_q[kWarps][4];
+};
+
+// Block-wide exact Sum q and Sum q^2 per gate slot, then one thread per
+// slot forms V = n Sum q^2 - (Sum q)^2 and its rsqrt multiplier.
+__device__ void ln_stats(const long long* s, const long long* q, int n,
+                         int nslots, LNStats* st) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int k = 0; k < nslots; ++k) {
+    long long a = s[k], b = q[k];
+    for (int off = 16; off > 0; off >>= 1) {
+      a += __shfl_down_sync(0xffffffffu, a, off);
+      b += __shfl_down_sync(0xffffffffu, b, off);
+    }
+    if (lane == 0) {
+      st->red_s[warp][k] = a;
+      st->red_q[warp][k] = b;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < nslots) {
+    const int k = threadIdx.x;
+    long long a = 0, b = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      a += st->red_s[w][k];
+      b += st->red_q[w][k];
+    }
+    const long long v = (long long)n * b - a * a;  // >= 0, < 2**59
+    st->sum[k] = (int32_t)a;
+    st->deg[k] = v == 0;
+    fp::rsqrt_multiplier((uint64_t)v, 10, &st->m0[k], &st->shift[k]);
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads, 1) quant_lstm_scan_kernel(ScanParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ LNStats st;
+  const int GH = p.G * p.H;
+  const int H = p.H;
+  int32_t* gates = reinterpret_cast<int32_t*>(smem);     // [G*H]
+  int32_t* part = gates + GH;                             // [kPartInts]
+  int16_t* c = reinterpret_cast<int16_t*>(part + kPartInts);     // [H]
+  int8_t* h = reinterpret_cast<int8_t*>(c + ((H + 7) & ~7));     // [d_out]
+  int8_t* m = h + ((p.d_out + 15) & ~15);                        // [H]
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  for (int j = tid; j < p.d_out; j += kThreads) h[j] = p.h0[(size_t)b * p.d_out + j];
+  for (int j = tid; j < H; j += kThreads) c[j] = p.c0[(size_t)b * H + j];
+  __syncthreads();
+
+  const int n_c = 15 - p.cell_int_bits;
+  const int vlen = p.valid_len ? p.valid_len[b] : p.T;
+  // with a peephole the o gate is finished after c_new (and LN'd there)
+  const int slot_o_late = p.use_ph ? p.slot_o : -1;
+
+  for (int t = 0; t < p.T; ++t) {
+    int8_t* ys_t = p.ys + ((size_t)b * p.T + t) * p.d_out;
+    if (t >= vlen) {  // frozen row: state unchanged, leaf 0 still emitted
+      for (int j = tid; j < p.d_out; j += kThreads) ys_t[j] = h[j];
+      continue;
+    }
+    const int32_t* ax = p.acc_x + ((size_t)b * p.T + t) * GH;
+
+    // 1. recurrent product h @ R_cat + fold_hb_cat into `gates`
+    matvec(h, p.d_out, p.R, GH, p.fold_hb, gates, part);
+    __syncthreads();
+
+    // 2. gate pre-activations (each thread owns hidden units j)
+    long long s[4] = {0, 0, 0, 0}, q[4] = {0, 0, 0, 0};
+    for (int j = tid; j < H; j += kThreads) {
+      const int32_t c_old = c[j];
+      for (int k = 0; k < p.G; ++k) {
+        const int idx = k * H + j;
+        int32_t g = fp::sat_add(fp::mbqm(ax[idx], p.eff_x[k][0], p.eff_x[k][1]),
+                                fp::mbqm(gates[idx], p.eff_h[k][0], p.eff_h[k][1]));
+        if (k == slot_o_late) {  // int32 pre-peephole o accumulator
+          gates[idx] = g;
+          continue;
+        }
+        if (p.use_ph && k != p.slot_z) {
+          g = fp::sat_add(g, fp::mbqm((int32_t)p.P[k][j] * c_old,
+                                      p.eff_c[k][0], p.eff_c[k][1]));
+        }
+        const int32_t g16 = fp::sat16(g);
+        gates[idx] = g16;
+        s[k] += g16;
+        q[k] += (long long)g16 * g16;
+      }
+    }
+    if (p.use_ln) {
+      ln_stats(s, q, H, p.G, &st);
+      for (int j = tid; j < H; j += kThreads) {
+        for (int k = 0; k < p.G; ++k) {
+          if (k == slot_o_late) continue;
+          const int idx = k * H + j;
+          gates[idx] = fp::layernorm_apply(gates[idx], H, st.sum[k], st.deg[k],
+                                           st.m0[k], st.shift[k], p.L[k][j],
+                                           p.Lb[k][j], p.ln_out[k][0],
+                                           p.ln_out[k][1]);
+        }
+      }
+    }
+
+    // 3. cell update (and the peephole o gate, which reads c_new)
+    long long so[4] = {0, 0, 0, 0}, qo[4] = {0, 0, 0, 0};
+    for (int j = tid; j < H; j += kThreads) {
+      const int32_t f_act = fp::sigmoid_q15(gates[p.slot_f * H + j], 3);
+      const int32_t z_act = fp::tanh_q15(gates[p.slot_z * H + j], 3);
+      int32_t i_act;
+      if (p.cifg) {
+        i_act = 32768 - f_act;
+        if (i_act > 32767) i_act = 32767;
+      } else {
+        i_act = fp::sigmoid_q15(gates[p.slot_i * H + j], 3);
+      }
+      const int16_t c_new = fp::sat16(fp::sat_add(
+          fp::rdbpot(i_act * z_act, 30 - n_c), fp::rdbpot(f_act * (int32_t)c[j], 15)));
+      c[j] = c_new;
+      if (slot_o_late >= 0) {
+        const int k = slot_o_late;
+        const int32_t o16 = fp::sat16(fp::sat_add(
+            gates[k * H + j],
+            fp::mbqm((int32_t)p.P[k][j] * c_new, p.eff_c[k][0], p.eff_c[k][1])));
+        gates[k * H + j] = o16;
+        so[0] += o16;
+        qo[0] += (long long)o16 * o16;
+      }
+    }
+    if (slot_o_late >= 0 && p.use_ln) {
+      const int k = slot_o_late;
+      ln_stats(so, qo, H, 1, &st);
+      for (int j = tid; j < H; j += kThreads) {
+        gates[k * H + j] = fp::layernorm_apply(
+            gates[k * H + j], H, st.sum[0], st.deg[0], st.m0[0], st.shift[0],
+            p.L[k][j], p.Lb[k][j], p.ln_out[k][0], p.ln_out[k][1]);
+      }
+    }
+
+    // 4. hidden output m = sat8(mbqm(o * tanh(c), eff_m) + zp_m)
+    int8_t* m_dst = p.use_proj ? m : h;  // no projection: m IS the new h
+    for (int j = tid; j < H; j += kThreads) {
+      const int32_t o_act = fp::sigmoid_q15(gates[p.slot_o * H + j], 3);
+      const int32_t g_c = fp::tanh_q15(c[j], p.cell_int_bits);
+      m_dst[j] = fp::sat8(fp::wrap32(
+          (int64_t)fp::mbqm(o_act * g_c, p.eff_m[0], p.eff_m[1]) + p.zp_m));
+    }
+    __syncthreads();
+
+    // 5. projection h = sat8(mbqm(m @ W_proj + fold_proj, eff_proj) + zp_h)
+    if (p.use_proj) {
+      matvec(m, H, p.W_proj, p.d_out, p.fold_proj, gates, part);
+      __syncthreads();
+      for (int j = tid; j < p.d_out; j += kThreads) {
+        h[j] = fp::sat8(fp::wrap32(
+            (int64_t)fp::mbqm(gates[j], p.eff_proj[0], p.eff_proj[1]) + p.zp_h_out));
+      }
+      __syncthreads();
+    }
+    for (int j = tid; j < p.d_out; j += kThreads) ys_t[j] = h[j];
+  }
+  __syncthreads();
+  for (int j = tid; j < p.d_out; j += kThreads) p.h_out[(size_t)b * p.d_out + j] = h[j];
+  for (int j = tid; j < H; j += kThreads) p.c_out[(size_t)b * H + j] = c[j];
+}
+
+}  // namespace
+
+// Shared-memory bytes the kernel needs for one row.
+static int quant_lstm_scan_smem_bytes(int G, int H, int d_out) {
+  return G * H * 4 + kPartInts * 4 + ((H + 7) & ~7) * 2 + ((d_out + 15) & ~15) +
+         ((H + 15) & ~15);
+}
+
+// Plain C entry point (bound with ctypes).
+//   ptrs: acc_x, R, fold_hb, P[4], L[4], Lb[4], W_proj, fold_proj, h0, c0,
+//         valid_len, ys, h_out, c_out                      (23 pointers)
+//   ints: T, H, d_out, G, use_ln, use_proj, use_ph, cifg, slot_i, slot_f,
+//         slot_z, slot_o, eff_x[4][2], eff_h[4][2], eff_c[4][2],
+//         ln_out[4][2], eff_m[2], eff_proj[2], zp_m, zp_h_out,
+//         cell_int_bits                                   (51 ints)
+// Returns cudaGetLastError() (or the attribute call's error).
+extern "C" int quant_lstm_scan_launch(const void* const* ptrs, const int32_t* ints,
+                                      int B, void* stream) {
+  ScanParams p;
+  int i = 0;
+  p.acc_x = static_cast<const int32_t*>(ptrs[i++]);
+  p.R = static_cast<const int8_t*>(ptrs[i++]);
+  p.fold_hb = static_cast<const int32_t*>(ptrs[i++]);
+  for (int k = 0; k < 4; ++k) p.P[k] = static_cast<const int16_t*>(ptrs[i++]);
+  for (int k = 0; k < 4; ++k) p.L[k] = static_cast<const int16_t*>(ptrs[i++]);
+  for (int k = 0; k < 4; ++k) p.Lb[k] = static_cast<const int32_t*>(ptrs[i++]);
+  p.W_proj = static_cast<const int8_t*>(ptrs[i++]);
+  p.fold_proj = static_cast<const int32_t*>(ptrs[i++]);
+  p.h0 = static_cast<const int8_t*>(ptrs[i++]);
+  p.c0 = static_cast<const int16_t*>(ptrs[i++]);
+  p.valid_len = static_cast<const int32_t*>(ptrs[i++]);
+  p.ys = static_cast<int8_t*>(const_cast<void*>(ptrs[i++]));
+  p.h_out = static_cast<int8_t*>(const_cast<void*>(ptrs[i++]));
+  p.c_out = static_cast<int16_t*>(const_cast<void*>(ptrs[i++]));
+
+  int j = 0;
+  p.T = ints[j++];
+  p.H = ints[j++];
+  p.d_out = ints[j++];
+  p.G = ints[j++];
+  p.use_ln = ints[j++];
+  p.use_proj = ints[j++];
+  p.use_ph = ints[j++];
+  p.cifg = ints[j++];
+  p.slot_i = ints[j++];
+  p.slot_f = ints[j++];
+  p.slot_z = ints[j++];
+  p.slot_o = ints[j++];
+  for (int k = 0; k < 4; ++k) for (int l = 0; l < 2; ++l) p.eff_x[k][l] = ints[j++];
+  for (int k = 0; k < 4; ++k) for (int l = 0; l < 2; ++l) p.eff_h[k][l] = ints[j++];
+  for (int k = 0; k < 4; ++k) for (int l = 0; l < 2; ++l) p.eff_c[k][l] = ints[j++];
+  for (int k = 0; k < 4; ++k) for (int l = 0; l < 2; ++l) p.ln_out[k][l] = ints[j++];
+  p.eff_m[0] = ints[j++];
+  p.eff_m[1] = ints[j++];
+  p.eff_proj[0] = ints[j++];
+  p.eff_proj[1] = ints[j++];
+  p.zp_m = ints[j++];
+  p.zp_h_out = ints[j++];
+  p.cell_int_bits = ints[j++];
+
+  const int smem = quant_lstm_scan_smem_bytes(p.G, p.H, p.d_out);
+  cudaError_t err = cudaFuncSetAttribute(
+      quant_lstm_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  quant_lstm_scan_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}

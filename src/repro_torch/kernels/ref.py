@@ -1,0 +1,136 @@
+"""Plain PyTorch step math of the integer recurrent stage.
+
+Port of the LSTM half of ``repro.kernels.ref``.  These functions are the
+CPU path of the sequence executor and the oracle that the CUDA sequence
+kernel (``csrc/quant_lstm_scan.cu``) is held against on the card: same
+gate order, same rescale order, same saturations.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..core import fixedpoint as fp
+from ..core import integer_ops as iops
+
+
+def finish_o_gate(o_in, c_new, p_o, eff_c_o, lw_o, lb_o, ln_out_o):
+    """o-gate finisher (the peephole contract of the fused cell).
+
+    With a peephole, ``o_in`` is the int32 pre-peephole accumulator; the
+    gate reads the NEW cell state (eq 5), so it is finished here:
+    ``sat16(o_in sat+ mbqm(P_o * c_new, eff_c_o))`` then LayerNorm if the
+    layer has it.  Without a peephole ``o_in`` is already the int16 gate.
+    """
+    if eff_c_o is None:
+        assert ln_out_o is None, "in-fusion o-gate LN requires the peephole"
+        return o_in
+    acc_c = iops.matmul_i16_elementwise(p_o, c_new)
+    o16 = fp.saturate_i16(fp.saturating_add_i32(
+        o_in, fp.multiply_by_quantized_multiplier(acc_c, *eff_c_o)))
+    if ln_out_o is not None:
+        o16 = iops.integer_layernorm(o16, lw_o, lb_o, *ln_out_o)
+    return o16
+
+
+def quant_lstm_cell(i16, f16, z16, o_in, c_q, *, cell_int_bits: int,
+                    cifg: bool, eff_m, zp_m: int, p_o=None, eff_c_o=None,
+                    lw_o=None, lb_o=None, ln_out_o=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused integer LSTM cell: activations, c update, o gate, m.
+
+    Returns ``(m int8, c_new int16)``.
+    """
+    n_c = 15 - cell_int_bits
+    f_act = fp.sigmoid_q15(f16, 3).to(torch.int32)
+    z_act = fp.tanh_q15(z16, 3).to(torch.int32)
+    if cifg:
+        i_act = torch.clamp(32768 - f_act, max=32767)
+    else:
+        i_act = fp.sigmoid_q15(i16, 3).to(torch.int32)
+    c_new = fp.saturate_i16(fp.saturating_add_i32(
+        fp.rounding_divide_by_pot(i_act * z_act, 30 - n_c),
+        fp.rounding_divide_by_pot(f_act * c_q.to(torch.int32), 15)))
+    o16 = finish_o_gate(o_in, c_new, p_o, eff_c_o, lw_o, lb_o, ln_out_o)
+    o_act = fp.sigmoid_q15(o16, 3).to(torch.int32)
+    g_c = fp.tanh_q15(c_new, cell_int_bits).to(torch.int32)
+    m_q = fp.saturate_i8(fp._wrap32(
+        fp.multiply_by_quantized_multiplier(o_act * g_c, *eff_m).to(
+            torch.int64) + zp_m))
+    return m_q, c_new
+
+
+def lstm_gate_preacts(vals, spec, acc_x, acc_h, c_q):
+    """Per-step gate pre-activations from the packed int32 accumulators.
+
+    Rescales run in the reference order (mbqm(x) sat+ mbqm(h) [sat+
+    mbqm(P (.) c)] -> sat16 -> LN).  Returns ``(i16, f16, z16, o_in,
+    o_kw)``; with a peephole ``o_in`` is the int32 pre-peephole o
+    accumulator and ``o_kw`` the finisher's params.
+    """
+    H = spec.cfg_d_hidden
+    g16 = {}
+    o_kw = {}
+    o_in = None
+    for k, g in enumerate(spec.variant.gates):
+        gs = spec.gate_spec(g)
+        gate = fp.saturating_add_i32(
+            fp.multiply_by_quantized_multiplier(
+                acc_x[..., k * H:(k + 1) * H], *gs.eff_x),
+            fp.multiply_by_quantized_multiplier(
+                acc_h[..., k * H:(k + 1) * H], *gs.eff_h))
+        if g == "o" and spec.use_peephole:
+            o_in = gate
+            o_kw = dict(p_o=vals["P"]["o"], eff_c_o=gs.eff_c)
+            if spec.use_layernorm:
+                o_kw.update(lw_o=vals["L"]["o"], lb_o=vals["Lb"]["o"],
+                            ln_out_o=gs.ln_out)
+            continue
+        if gs.eff_c is not None:  # i/f peephole on the previous cell state
+            acc_c = iops.matmul_i16_elementwise(vals["P"][g], c_q)
+            gate = fp.saturating_add_i32(
+                gate, fp.multiply_by_quantized_multiplier(acc_c, *gs.eff_c))
+        gate16 = fp.saturate_i16(gate)
+        if spec.use_layernorm:
+            gate16 = iops.integer_layernorm(
+                gate16, vals["L"][g], vals["Lb"][g], *gs.ln_out)
+        g16[g] = gate16
+    if o_in is None:
+        o_in = g16["o"]
+    i16 = g16.get("i", g16["f"])  # placeholder when CIFG (cell ignores it)
+    return i16, g16["f"], g16["z"], o_in, o_kw
+
+
+def lstm_project(vals, spec, m_q: torch.Tensor) -> torch.Tensor:
+    """Optional projection: int8 hidden ``m`` -> int8 output ``h``."""
+    if not spec.use_projection:
+        return m_q
+    acc = fp._wrap32(iops.matmul_i8_i32(m_q, vals["W_proj"]).to(torch.int64)
+                     + vals["fold_proj"].to(torch.int64))
+    h_new = fp.multiply_by_quantized_multiplier(acc, *spec.eff_proj)
+    return fp.saturate_i8(fp._wrap32(h_new.to(torch.int64) + spec.zp_h_out))
+
+
+def quant_lstm_recurrent(vals, spec, acc_x_t, h_q, c_q):
+    """One LSTM timestep given the hoisted input accumulator slice."""
+    acc_h = fp._wrap32(iops.matmul_i8_i32(h_q, vals["R_cat"]).to(torch.int64)
+                       + vals["fold_hb_cat"].to(torch.int64))
+    i16, f16, z16, o_in, o_kw = lstm_gate_preacts(vals, spec, acc_x_t, acc_h,
+                                                  c_q)
+    m_q, c_new = quant_lstm_cell(
+        i16, f16, z16, o_in, c_q, cell_int_bits=spec.cell_int_bits,
+        cifg=spec.use_cifg, eff_m=spec.eff_m, zp_m=spec.zp_m, **o_kw)
+    return lstm_project(vals, spec, m_q), c_new
+
+
+def recurrent_step(vals, spec, acc_x_t, state: Tuple[torch.Tensor, ...]
+                   ) -> Tuple[torch.Tensor, ...]:
+    """One timestep of the layer's cell over its flat state tuple (leaf 0
+    is the emitted output)."""
+    cell = getattr(spec, "cell", "lstm")
+    if cell == "lstm":
+        return quant_lstm_recurrent(vals, spec, acc_x_t, state[0], state[1])
+    raise NotImplementedError(
+        f"no recurrent step for cell {cell!r} in this port yet")
+

@@ -1,0 +1,152 @@
+"""Float LSTM reference: every topology variant of the paper (sec 2).
+
+Port of ``repro.models.lstm`` (without QAT): peephole, CIFG, projection
+and layer-norm flags compose freely.  The float graph is the calibration
+vehicle: a ``TapCollector`` passed through it records every Table-2 range.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+GATES = ("i", "f", "z", "o")  # input, forget, update (cell), output
+
+
+@dataclasses.dataclass(frozen=True)
+class LSTMVariant:
+    use_layernorm: bool = False
+    use_projection: bool = False
+    use_peephole: bool = False
+    use_cifg: bool = False
+
+    @property
+    def gates(self) -> Tuple[str, ...]:
+        return tuple(g for g in GATES if not (self.use_cifg and g == "i"))
+
+    @property
+    def name(self) -> str:
+        parts = ["LN" if self.use_layernorm else "noLN",
+                 "Proj" if self.use_projection else "noProj",
+                 "PH" if self.use_peephole else "noPH"]
+        if self.use_cifg:
+            parts.append("CIFG")
+        return "-".join(parts)
+
+
+ALL_VARIANTS = tuple(
+    LSTMVariant(ln, proj, ph, cifg)
+    for ln in (False, True)
+    for proj in (False, True)
+    for ph in (False, True)
+    for cifg in (False, True)
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class LSTMConfig:
+    d_input: int
+    d_hidden: int
+    d_proj: int = 0  # 0 => no projection
+    variant: LSTMVariant = LSTMVariant()
+
+    @property
+    def d_output(self) -> int:
+        return self.d_proj if self.variant.use_projection else self.d_hidden
+
+
+def init_lstm_params(generator: torch.Generator, cfg: LSTMConfig,
+                     device=None) -> Dict[str, Any]:
+    """One layer's float32 parameters; per-gate W/R kept separate (fig 16).
+
+    Drawn on ``generator``'s device, then placed on ``device``.
+    """
+    v = cfg.variant
+    gdev = generator.device
+
+    def normal(shape):
+        return torch.randn(shape, generator=generator, device=gdev).to(device)
+
+    def dense(shape, fan_in):
+        return normal(shape) / math.sqrt(fan_in)
+
+    def zeros(n):
+        return torch.zeros(n, device=device)
+
+    params: Dict[str, Any] = {"W": {}, "R": {}, "b": {}}
+    for g in v.gates:
+        params["W"][g] = dense((cfg.d_input, cfg.d_hidden), cfg.d_input)
+        params["R"][g] = dense((cfg.d_output, cfg.d_hidden), cfg.d_output)
+        params["b"][g] = zeros(cfg.d_hidden)
+    if v.use_peephole:
+        params["P"] = {g: 0.1 * normal((cfg.d_hidden,))
+                       for g in v.gates if g != "z"}
+    if v.use_layernorm:
+        params["L"] = {g: torch.ones(cfg.d_hidden, device=device)
+                       for g in v.gates}
+    if v.use_projection:
+        params["W_proj"] = dense((cfg.d_hidden, cfg.d_proj), cfg.d_hidden)
+        params["b_proj"] = zeros(cfg.d_proj)
+    return params
+
+
+def _layernorm_stats(x: torch.Tensor) -> torch.Tensor:
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-12)
+
+
+def lstm_cell(params: Dict[str, Any], cfg: LSTMConfig, x: torch.Tensor,
+              h: torch.Tensor, c: torch.Tensor, collector=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One float LSTM step (eqs 1-7).  x: (B, d_in); h: (B, d_out); c: (B, d_h).
+
+    ``collector``: optional TapCollector registering every Table-2 range.
+    """
+    v = cfg.variant
+
+    def tap(name, t):
+        return collector.tap(name, t) if collector is not None else t
+
+    x = tap("x", x)
+    h = tap("h", h)
+
+    def gate_preact(g: str, c_for_peephole: Optional[torch.Tensor]):
+        acc = x @ params["W"][g] + h @ params["R"][g]
+        if v.use_peephole and g != "z" and c_for_peephole is not None:
+            acc = acc + params["P"][g] * c_for_peephole
+        acc = tap(f"g_{g}", acc)  # Table-2 row g_lambda (LN output scale)
+        if v.use_layernorm:
+            return _layernorm_stats(acc) * params["L"][g] + params["b"][g]
+        return acc + params["b"][g]
+
+    f_t = torch.sigmoid(gate_preact("f", c))
+    z_t = torch.tanh(gate_preact("z", None))
+    i_t = 1.0 - f_t if v.use_cifg else torch.sigmoid(gate_preact("i", c))
+    c_new = tap("c", i_t * z_t + f_t * c)
+    o_t = torch.sigmoid(gate_preact("o", c_new))
+    m_t = tap("m", o_t * torch.tanh(c_new))
+    if v.use_projection:
+        h_new = m_t @ params["W_proj"] + params["b_proj"]
+    else:
+        h_new = m_t
+    return tap("h_out", h_new), c_new
+
+
+def lstm_layer(params: Dict[str, Any], cfg: LSTMConfig, xs: torch.Tensor,
+               h0: Optional[torch.Tensor] = None,
+               c0: Optional[torch.Tensor] = None, collector=None
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Run a layer over time.  xs: (B, T, d_in) -> (B, T, d_out)."""
+    B = xs.shape[0]
+    h = h0 if h0 is not None else xs.new_zeros((B, cfg.d_output))
+    c = c0 if c0 is not None else xs.new_zeros((B, cfg.d_hidden))
+    outs = []
+    for t in range(xs.shape[1]):
+        h, c = lstm_cell(params, cfg, xs[:, t], h, c, collector)
+        outs.append(h)
+    if not outs:
+        return xs.new_zeros((B, 0, cfg.d_output)), (h, c)
+    return torch.stack(outs, dim=1), (h, c)

@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  On a machine
+with an H100:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def test_int8_matmul_kernel_matches_plain(cuda):
+    from repro_torch.kernels import int8_matmul as K1
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for M, K, N, odt in ((3, 17, 5, torch.int32), (64, 640, 192, torch.int8),
+                         (65, 129, 63, torch.int16), (4, 2048, 256, torch.int32)):
+        x = torch.randint(-128, 128, (M, K), generator=gen, device=cuda,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=gen, device=cuda,
+                          dtype=torch.int8)
+        fold = torch.randint(-1000, 1000, (N,), generator=gen, device=cuda,
+                             dtype=torch.int32)
+        m0 = torch.full((N,), 1 << 30, dtype=torch.int32, device=cuda)
+        shift = torch.full((N,), -9, dtype=torch.int32, device=cuda)
+        before = K1.launches
+        got = K1.int8_matmul(x, w, fold, m0, shift, out_dtype=odt, zp_out=-3)
+        assert K1.launches == before + 1
+        want = K1.int8_matmul_plain(x, w, fold, m0, shift, out_dtype=odt,
+                                    zp_out=-3)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("vi", [0, 5, 10, 15])
+def test_scan_kernel_matches_plain(cuda, vi):
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import quant_lstm_scan as K2
+    from repro_torch.core import recipe as R
+    from repro_torch.core.calibrate import Stats, TapCollector
+    from repro_torch.models import lstm as L
+    from repro_torch.models import quant_lstm as QL
+
+    variant = L.ALL_VARIANTS[vi]
+    cfg = L.LSTMConfig(9, 13, 6 if variant.use_projection else 0, variant)
+    gen = torch.Generator(device=cuda).manual_seed(vi)
+    params = L.init_lstm_params(gen, cfg, cuda)
+    xs = 0.8 * torch.randn((3, 5, 9), generator=gen, device=cuda)
+    col = TapCollector()
+    L.lstm_layer(params, cfg, xs, collector=col)
+    stats = Stats()
+    stats.merge(col.snapshot())
+    arrays, spec = R.quantize_lstm_layer(params, cfg, stats)
+    xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+    acc = K1.int8_matmul_plain(xs_q.reshape(15, 9), arrays["W_cat"],
+                               arrays["fold_x_cat"]).reshape(3, 5, -1)
+    state0 = QL.initial_recurrent_state(spec, 3, cuda)
+    _, carried = K2.quant_recurrent_seq_scan_plain(arrays, spec, acc, state0)
+    # from the reset state, then one decode-shaped step from the carried one
+    for a, st in ((acc, state0), (acc[:, :1].contiguous(), carried)):
+        for vl in (None, torch.tensor([5, 0, 1], dtype=torch.int32,
+                                      device=cuda)):
+            ys, (h, c) = K2.quant_recurrent_seq_scan(arrays, spec, a, st, vl)
+            pys, (ph, pc) = K2.quant_recurrent_seq_scan_plain(arrays, spec, a,
+                                                              st, vl)
+            assert torch.equal(ys, pys) and torch.equal(h, ph)
+            assert torch.equal(c, pc)
+
+
+def test_fixedpoint_header_on_card_matches_port(cuda):
+    from repro_torch.kernels import fixedpoint_check as FC
+
+    c = FC.cases(seed=1)
+    got = FC.on_card(c, cuda)
+    for key, want in FC.expected(c, cuda).items():
+        assert torch.equal(got[key], want), key
+
+
+def test_serve_smoke_launches_each_kernel_per_layer_and_step(cuda):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config("lstm-rnnt", smoke=True)
+    params, qlayers = serve.build_model(cfg, 2, 5, cuda)
+    res = serve.serve(params, qlayers, cfg, serve.random_prompt(cfg, 2, 5, cuda),
+                      3)
+    expect = cfg.n_layers * (1 + 3)
+    assert res.launches == {"int8_matmul": expect, "quant_lstm_scan": expect}
+    assert tuple(res.tokens.shape) == (2, 3)
