@@ -3,33 +3,49 @@
 
     python3 chip_smoke.py
 
-1. builds both CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
-   in parallel, beside the header check of step 2) and prints the build
-   seconds and ptxas resource lines;
+1. builds the three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+   each, in parallel, beside the header check of step 2) and prints the
+   build seconds and ptxas resource lines;
 2. holds the kernels' fixed-point header, compiled for the card, against
    the port's PyTorch fixed point: tanh/sigmoid on every int16 input for
    integer_bits 0..15, the LayerNorm rsqrt multiplier, MBQM;
 3. holds the int8 GEMM kernel bit for bit against its plain version on the
    card at the serving shapes (M in {B, B*T}, K in {2048, 640}, N = 8192),
    ragged shapes and the int8/int16 epilogues;
-4. holds the sequence kernel against its plain version: all 16 LSTM
+4. holds the LSTM sequence kernel against its plain version: all 16 LSTM
    variants at small widths, then a full-width LN+projection layer from
    the port's own recipe, unmasked and masked, each from the reset state
    and continued from the carried (nonzero) state, at the decode shape
    (B = 4, T = 1) too;
-5. serves full-width ``lstm-rnnt`` (10 layers, d_rnn 2048, d_proj 640,
-   vocab 4096) through the port's serve path: seeded init, calibration,
-   quantization, prefill of 4 x 32 tokens and 16 greedy tokens; each
-   kernel's launch counter must rise by exactly 10 x (1 + 16), and the
-   integer states of every layer after the prefill and after each decode
-   step, and every greedy token, must equal a plain-version run of the
-   stack fed the same tokens; then the same serve is repeated to show the
-   spread of tokens/s;
-6. times each kernel with CUDA events (L2 flushed, the card held busy while
+5. holds the GRU sequence kernel against its plain version in the same
+   way: both GRU variants (noLN, LN) at small widths, then a full-width
+   LN layer (d_in = H = 2048) at B = 4, T = 32 and T = 1;
+6. serves full-width ``lstm-rnnt`` (10 layers, d_rnn 2048, d_proj 640,
+   vocab 4096) and then full-width ``gru-rnnt`` (10 layers, d_rnn 2048,
+   vocab 4096) through the port's static serve path: seeded init,
+   calibration, quantization, prefill of 4 x 32 tokens and 16 greedy
+   tokens; the GEMM's and the cell's sequence kernel's launch counters
+   must rise by exactly 10 x (1 + 16), and the integer states of every
+   layer after the prefill and after each decode step, and every greedy
+   token, must equal a plain-version run of the stack fed the same tokens;
+   the LSTM serve is then repeated to show the spread of tokens/s;
+7. serves 12 requests through the continuous-batching engine on each
+   full-width model (4 slots, chunked prefill K = 4; gru-rnnt with
+   arrivals staggered over 8 steps; gru-rnnt with speculation k = 4 under
+   ``srf`` at oversubscription 2.0, so streams are preempted through the
+   state pool; lstm-rnnt under ``fifo``): every stream's tokens must equal
+   the port's
+   ``decode_single`` on the card;
+8. times each kernel with CUDA events (L2 flushed, the card held busy while
    the host enqueues the call, so the span is device time) beside its plain
    version, its bound and, for the GEMM, torch._int_mm;
-7. prints the card's name and power limit, the kernels' JSON line and, as
+9. prints the card's name and power limit, the kernels' JSON line and, as
    the last line, ``{"ok": true, "device": {...}}``.
+
+Every launch counter is set to 0 just before each served path (the two
+static serves, the two engine runs) and read just after it; a kernel of
+the path that did not launch fails the run.  Each phase prints its
+seconds.
 
 Any mismatch, build failure or launch error raises, and the script exits
 non-zero without the last line.  Without a CUDA device it fails at once.
@@ -51,6 +67,14 @@ INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 SM_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock; a lower clock sleeps longer
 B, T, GEN = 4, 32, 16
 REPEATS = 9  # repeated serves for the spread of tokens/s
+ENGINE_REPEATS = 5  # repeated engine runs for the spread of tokens/s
+SCAN_OF = {"lstm": "quant_lstm_scan", "gru": "quant_gru_scan"}
+# the engine workload: 12 requests of synthetic_trace(seed=11), arriving
+# over engine steps 0..8, on 4 slots with chunked prefill K = 4
+ENGINE = dict(n_requests=12, seed=11, prompt_lens=(8, 16, 32),
+              gen_lens=(4, 8, 16), arrival_span=8, slots=4, chunk=4)
+ENGINE_RUNS = (("gru-rnnt", "srf", 2.0, 4),  # arch, policy, oversubscribe,
+               ("lstm-rnnt", "fifo", 1.0, 0))  # speculate
 
 
 def log(*args):
@@ -190,6 +214,30 @@ def quantized_layer(variant, d_in, H, d_proj, dev, seed, calib_T=6):
     return arrays, spec, xs
 
 
+def quantized_gru_layer(use_ln, d_in, H, dev, seed, calib_T=6):
+    """A GRU layer quantized by the port's own calibration + recipe."""
+    import torch
+    from repro_torch.core import recipe as R
+    from repro_torch.core.calibrate import Stats, TapCollector
+    from repro_torch.models import gru as G
+
+    cfg = G.GRUConfig(d_in, H, G.GRUVariant(use_layernorm=use_ln))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = G.init_gru_params(gen, cfg, dev)
+    if use_ln:
+        for g in params["L"]:
+            params["L"][g] = 1.0 + 0.3 * torch.randn(
+                H, generator=gen, device=dev)
+    xs = 0.8 * torch.randn((B, calib_T, d_in), generator=gen, device=dev)
+    col = TapCollector()
+    with torch.no_grad():
+        G.gru_layer(params, cfg, xs, collector=col)
+    stats = Stats()
+    stats.merge(col.snapshot())
+    arrays, spec = R.quantize_gru_layer(params, cfg, stats)
+    return arrays, spec, xs
+
+
 def run_scan_pair(arrays, spec, xs_q, valid_len=None, state0=None):
     """(kernel result, plain result) of the recurrent stage on one input,
     from ``state0`` (the reset state when None)."""
@@ -210,6 +258,9 @@ def run_scan_pair(arrays, spec, xs_q, valid_len=None, state0=None):
 
 def compare_scan(what, got, want):
     err = require_equal(f"{what} ys", got[0], want[0])
+    if len(got[1]) != len(want[1]):
+        raise AssertionError(f"{what}: {len(got[1])} state leaves, plain "
+                             f"{len(want[1])}")
     for name, g, w in zip(("h", "c"), got[1], want[1]):
         err = max(err, require_equal(f"{what} {name}", g, w))
     return err
@@ -224,8 +275,8 @@ def check_layer(what, arrays, spec, xs_q, vl_full, vl_next, t_next):
     err = max(err, compare_scan(f"{what} masked", *run_scan_pair(
         arrays, spec, xs_q, vl_full)))
     carried = want[1]
-    if not any(bool(leaf.any()) for leaf in carried):
-        raise AssertionError(f"{what}: the carried state is all zero")
+    if not bool(carried[0].ne(spec.zp_h_out).any()):
+        raise AssertionError(f"{what}: the carried h is still the reset h")
     nxt = xs_q[:, :t_next].contiguous()
     err = max(err, compare_scan(f"{what} carried", *run_scan_pair(
         arrays, spec, nxt, state0=carried)))
@@ -265,6 +316,37 @@ def check_scan(dev):
     return err, (arrays, spec, xs_q)
 
 
+def check_gru_scan(dev):
+    import torch
+    from repro_torch.models import gru as G
+    from repro_torch.models import quant_lstm as QL
+
+    def lens(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    err = 0
+    for i, variant in enumerate(G.ALL_VARIANTS):
+        for d_in, H in ((10, 13), (24, 40), (24, 48)):
+            arrays, spec, xs = quantized_gru_layer(
+                variant.use_layernorm, d_in, H, dev, seed=200 + i)
+            xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+            err = max(err, check_layer(f"GRU {variant.name} H={H}", arrays,
+                                       spec, xs_q, lens(6, 3, 0, 1),
+                                       lens(2, 1, 0, 2), 2))
+    log("[check] quant_gru_scan: 2 variants x 3 widths, from the reset and "
+        "the carried state, plain and masked, bit-exact vs plain")
+    arrays, spec, xs = quantized_gru_layer(True, 2048, 2048, dev, seed=9,
+                                           calib_T=T)
+    xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+    err = max(err, check_layer("full-width GRU layer", arrays, spec, xs_q,
+                               lens(T, 17, 1, 0), lens(1, 0, 1, 0), 1))
+    torch.cuda.synchronize()
+    log("[check] quant_gru_scan: full-width LN layer (d_in = H = 2048, "
+        "B=4): T=32 from the reset state and T=1 (the decode shape) from "
+        "its carried state, plain and masked, bit-exact")
+    return err, (arrays, spec, xs_q)
+
+
 def check_fixedpoint(dev):
     """The kernels' fixed-point header on the card against the PyTorch
     port (which the CPU tests hold against the JAX reference)."""
@@ -283,70 +365,84 @@ def check_fixedpoint(dev):
 def plain_forward(params, qlayers, tokens, states):
     """``lstm_lm.quant_forward`` with every kernel swapped for its plain
     version (the reference for the served run).  Returns the last
-    position's logits and the new ``{"h": [...], "c": [...]}`` states."""
+    position's logits and the new per-leaf states (``{"h": [...],
+    "c": [...]}`` for the LSTM, ``{"h": [...]}`` for the GRU)."""
     import torch
     from repro_torch.kernels import int8_matmul as K1
     from repro_torch.kernels import quant_lstm_scan as K2
     from repro_torch.layers import embedding as emb
+    from repro_torch.models import lstm_lm
     from repro_torch.models import quant_lstm as QL
 
+    keys = lstm_lm._cell_state_keys(qlayers)
     x = emb.embed_tokens(params, tokens).float()
-    new = {"h": [], "c": []}
+    new = {k: [] for k in keys}
     for i, (arrays, spec) in enumerate(qlayers):
         x_q = QL.quantize_input(x, spec.s_x, spec.zp_x)
         Bx, Tx, d_in = x_q.shape
         acc = K1.int8_matmul_plain(x_q.reshape(Bx * Tx, d_in),
                                    arrays["W_cat"], arrays["fold_x_cat"])
-        ys, (h, c) = K2.quant_recurrent_seq_scan_plain(
+        ys, layer = K2.quant_recurrent_seq_scan_plain(
             arrays, spec, acc.reshape(Bx, Tx, -1),
-            (states["h"][i], states["c"][i]))
+            tuple(states[k][i] for k in keys))
         x = QL.dequantize_output(ys, spec.s_h, spec.zp_h_out)
-        new["h"].append(h)
-        new["c"].append(c)
+        for k, leaf in zip(keys, layer, strict=True):
+            new[k].append(leaf)
     logits = emb.logits_head(params, x.to(torch.bfloat16))
     return logits[:, -1], new
 
 
 def compare_states(what, got, want):
-    for key in ("h", "c"):
+    for key in want:
         for i, (g, w) in enumerate(zip(got[key], want[key], strict=True)):
             require_equal(f"{what} layer {i} {key}", g, w)
 
 
-def serve_full_width(dev):
+def path_launches(what, counts, expect):
+    """Fail unless every kernel of a served path launched (as often as
+    ``expect`` says, where it says)."""
+    log(f"[{what}] launches: {counts}")
+    for name, n in expect.items():
+        if n is None:
+            if counts[name] <= 0:
+                raise AssertionError(f"{what}: {name} never launched")
+        elif counts[name] != n:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} "
+                                 f"times, expected {n}")
+
+
+def serve_full_width(dev, arch, repeats):
     import torch
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import int8_matmul as K1
-    from repro_torch.kernels import quant_lstm_scan as K2
     from repro_torch.launch import serve
     from repro_torch.models import lstm_lm
 
-    cfg = get_config("lstm-rnnt")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params, qlayers = serve.build_model(cfg, B, T, dev)
     torch.cuda.synchronize()
     log(f"[serve] {cfg.name}: init + calibration + quantization of "
         f"{len(qlayers)} layers in {time.perf_counter() - t0:.1f}s")
     prompt = serve.random_prompt(cfg, B, T, dev)
-    K1.launches = 0
-    K2.launches = 0
+    scan = SCAN_OF[lstm_lm.rnn_cell(cfg)]
+    expect = {name: 0 for name in serve.KERNELS}
+    expect.update({"int8_matmul": cfg.n_layers * (1 + GEN),
+                   scan: cfg.n_layers * (1 + GEN)})
+    serve.reset_launch_counts()
     res = serve.serve(params, qlayers, cfg, prompt, GEN)
-    counts = {"int8_matmul": K1.launches, "quant_lstm_scan": K2.launches}
-    expect = cfg.n_layers * (1 + GEN)
-    log(f"[serve] launches during serve: {counts} (expected {expect} each)")
-    if counts != {"int8_matmul": expect, "quant_lstm_scan": expect}:
-        raise AssertionError(f"launch counts {counts} != {expect} each")
+    counts = serve.launch_counts()
+    path_launches(f"serve {cfg.name}", counts, expect)
     if res.launches != counts:
         raise AssertionError(f"serve() counted {res.launches}")
     toks = res.tokens
     if tuple(toks.shape) != (B, GEN) or int(toks.min()) < 0 or \
             int(toks.max()) >= cfg.vocab_size:
         raise AssertionError(f"bad generated tokens {toks}")
-    log(f"[serve] prompt tokens/s: {B * T / res.prefill_s:.1f}  "
+    log(f"[serve] {cfg.name} prompt tokens/s: {B * T / res.prefill_s:.1f}  "
         f"decode tokens/s: {B * GEN / res.decode_s:.1f}  "
         f"(prefill {res.prefill_s * 1e3:.2f} ms, decode "
         f"{res.decode_s * 1e3 / GEN:.2f} ms/step, host clock)")
-    log("[serve] sample:", toks[0].tolist())
+    log(f"[serve] {cfg.name} sample:", toks[0].tolist())
     # the served run, step by step, against the plain-version stack
     with torch.no_grad():
         logits, st = plain_forward(
@@ -361,37 +457,189 @@ def serve_full_width(dev):
             compare_states(f"decode step {i}", res.states[i + 1], st)
         require_equal("last greedy token", toks[:, -1:],
                       logits.argmax(-1)[:, None])
-    if (K1.launches, K2.launches) != (expect, expect):
+    if serve.launch_counts() != counts:
         raise AssertionError("the plain-version stack launched a kernel")
-    log(f"[serve] integer states of all {cfg.n_layers} layers after the "
-        f"prefill and after each of the {GEN} decode steps, and every greedy "
-        "token, equal the plain-version stack")
-    # the spread of the host-clock metrics: the same serve, repeated
-    reps = [serve.serve(params, qlayers, cfg, prompt, GEN)
-            for _ in range(REPEATS)]
+    log(f"[serve] {cfg.name}: integer states of all {cfg.n_layers} layers "
+        f"after the prefill and after each of the {GEN} decode steps, and "
+        "every greedy token, equal the plain-version stack")
+    spread = None
+    if repeats:  # the spread of the host-clock metrics: the serve, repeated
+        reps = [serve.serve(params, qlayers, cfg, prompt, GEN)
+                for _ in range(repeats)]
+        spread = {
+            "prompt_tok_s": sorted(B * T / r.prefill_s for r in reps),
+            "decode_tok_s": sorted(B * GEN / r.decode_s for r in reps)}
+        if any(not torch.equal(r.tokens, toks) for r in reps):
+            raise AssertionError("a repeated serve generated other tokens")
+        for name, vals in spread.items():
+            log(f"[serve] {cfg.name} {name} over {repeats} repeats: min "
+                f"{vals[0]:.1f} median {vals[repeats // 2]:.1f} max "
+                f"{vals[-1]:.1f}")
+    out = {"arch": cfg.name, "launches": counts, "prefill_s": res.prefill_s,
+           "decode_s": res.decode_s, "repeats": spread,
+           "sample": toks[0].tolist()}
+    return out, (params, qlayers, cfg)
+
+
+def engine_full_width(model, policy, oversubscribe, speculate):
+    """The continuous-batching engine over ``ENGINE``'s workload on a
+    full-width model; every stream held against ``decode_single``."""
+    import torch
+    from repro_torch.launch import engine as E
+    from repro_torch.launch import serve
+    from repro_torch.models import lstm_lm
+
+    params, qlayers, cfg = model
+    requests = E.synthetic_trace(
+        ENGINE["n_requests"], cfg.vocab_size, seed=ENGINE["seed"],
+        prompt_lens=ENGINE["prompt_lens"], gen_lens=ENGINE["gen_lens"],
+        arrival_span=ENGINE["arrival_span"])
+
+    def run():
+        eng = E.ContinuousBatchingEngine(
+            params, qlayers, cfg, n_slots=ENGINE["slots"],
+            chunk=ENGINE["chunk"], speculate=speculate, policy=policy,
+            oversubscribe=oversubscribe)
+        eng.submit_all(requests)
+        torch.cuda.synchronize()
+        return eng.run()
+
+    serve.reset_launch_counts()
+    results, stats = run()
+    counts = serve.launch_counts()
+    what = f"engine {cfg.name} {policy}"
+    expect = {"int8_matmul": None, SCAN_OF[lstm_lm.rnn_cell(cfg)]: None}
+    path_launches(what, counts, expect)
+    if counts["int8_matmul"] != counts[SCAN_OF[lstm_lm.rnn_cell(cfg)]]:
+        raise AssertionError(f"{what}: one GEMM per sequence-kernel launch "
+                             f"expected, got {counts}")
+    serve.print_engine_stats(stats, len(results), len(requests))
+    if len(results) != len(requests) or any(
+            r.truncated for r in results.values()):
+        raise AssertionError(f"{what}: not every request was served")
+    if policy != "fifo" and stats.preemptions < 1:
+        raise AssertionError(f"{what}: no stream was preempted")
+    t0 = time.perf_counter()
+    for r in requests:
+        single = E.decode_single(params, qlayers, cfg, r.prompt,
+                                 r.max_new_tokens)
+        if results[r.rid].tokens != single:
+            raise AssertionError(f"{what}: stream {r.rid} "
+                                 f"{results[r.rid].tokens} != decode_single "
+                                 f"{single}")
+    log(f"[{what}] all {len(requests)} streams equal decode_single on the "
+        f"card ({time.perf_counter() - t0:.1f}s); {stats.steps} steps, "
+        f"{stats.preemptions} preemptions, {stats.resumes} resumes, accept "
+        f"rate {stats.accept_rate:.2f}")
+    # the spread of the host-clock metrics: the same workload, repeated
+    reps = []
+    for _ in range(ENGINE_REPEATS):
+        res_r, st_r = run()
+        if any(res_r[r.rid].tokens != results[r.rid].tokens
+               for r in requests):
+            raise AssertionError(f"{what}: a repeated run generated other "
+                                 "tokens")
+        reps.append(st_r)
     spread = {
-        "prompt_tok_s": sorted(B * T / r.prefill_s for r in reps),
-        "decode_tok_s": sorted(B * GEN / r.decode_s for r in reps)}
-    if any(not torch.equal(r.tokens, toks) for r in reps):
-        raise AssertionError("a repeated serve generated other tokens")
+        "tokens_per_s": sorted(r.tokens_per_s for r in reps),
+        "mean_ttft_s": sorted(r.mean_ttft_s for r in reps),
+        "step_ms": sorted(r.wall_s / r.steps * 1e3 for r in reps)}
     for name, vals in spread.items():
-        log(f"[serve] {name} over {REPEATS} repeats: min {vals[0]:.1f} "
-            f"median {vals[REPEATS // 2]:.1f} max {vals[-1]:.1f}")
-    return counts, res, cfg, spread
+        log(f"[{what}] {name} over {ENGINE_REPEATS} repeats: min "
+            f"{vals[0]:.4g} median {vals[ENGINE_REPEATS // 2]:.4g} max "
+            f"{vals[-1]:.4g}")
+    busy_ms, prof_wall_s = device_busy_ms(run)
+    share = (busy_ms / 1e3 / prof_wall_s) if busy_ms else None
+    log(f"[{what}] profiled run: device busy {busy_ms} ms of "
+        f"{prof_wall_s * 1e3:.1f} ms wall (busy share {share})")
+    return {"arch": cfg.name, "policy": policy, "oversubscribe": oversubscribe,
+            "speculate": speculate, "chunk": ENGINE["chunk"],
+            "arrival_span": ENGINE["arrival_span"], "launches": counts,
+            "steps": stats.steps, "wall_s": stats.wall_s,
+            "tokens_per_s": stats.tokens_per_s,
+            "generated_tokens": stats.generated_tokens,
+            "prompt_tokens": stats.prompt_tokens,
+            "mean_ttft_steps": stats.mean_ttft_steps,
+            "mean_ttft_s": stats.mean_ttft_s, "occupancy": stats.occupancy,
+            "preemptions": stats.preemptions, "resumes": stats.resumes,
+            "accept_rate": stats.accept_rate,
+            "pool_state_bytes": stats.pool_state_bytes, "repeats": spread,
+            "profiled": {"device_busy_ms": busy_ms, "wall_s": prof_wall_s,
+                         "busy_share": share}}
 
 
-def time_kernels(dev, layer, cfg):
+def device_busy_ms(run):
+    """``(device ms, wall s)`` of one engine run under ``torch.profiler``:
+    the sum of the kernels' device time (launches do not overlap on one
+    stream), beside the run's own host-clock wall.  Device ms is None
+    where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, stats = run()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return (busy_us / 1e3 if busy_us > 0 else None), stats.wall_s
+
+
+def scan_bytes_ops(acc, spec):
+    """Bytes a sequence-kernel call must move (each input read once, each
+    output written once) and its int8 operations, from its shapes."""
+    Bx, Tx, GH = acc.shape
+    H, d = spec.cfg_d_hidden, spec.d_out
+    per_gate = 4 * H * 6 if spec.cell == "lstm" else 3 * H * 6  # P, L, Lb
+    state = B * d + (B * H * 2 if spec.cell == "lstm" else 0)
+    proj = H * d + d * 4 if getattr(spec, "use_projection", False) else 0
+    n_bytes = (Bx * Tx * GH * 4 + d * GH + GH * 4 + per_gate + proj
+               + 2 * state + Bx * Tx * d)
+    ops = 2 * Bx * Tx * (d * GH + (H * d if proj else 0))
+    return n_bytes, ops
+
+
+def time_scan(dev, layer, name, flush):
+    """Device ms of a sequence kernel at B4 T32 and B4 T1, beside its plain
+    version and its bound."""
     import torch
     from repro_torch.kernels import int8_matmul as K1
     from repro_torch.kernels import quant_lstm_scan as K2
     from repro_torch.models import quant_lstm as QL
 
+    arrays, spec, xs_q = layer
+    rows = []
+    for Tx in (T, 1):
+        xq = xs_q[:, :Tx].contiguous()
+        acc = K1.int8_matmul_plain(xq.reshape(B * Tx, -1), arrays["W_cat"],
+                                   arrays["fold_x_cat"]).reshape(B, Tx, -1)
+        st = QL.initial_recurrent_state(spec, B, dev)
+        row = {"B": B, "T": Tx, "H": spec.cfg_d_hidden, "d_out": spec.d_out}
+        row["ms"], row["host_ms"] = cold_ms(
+            lambda: K2.quant_recurrent_seq_scan(arrays, spec, acc, st), 10,
+            flush)
+        row["plain_ms"], _ = cold_ms(
+            lambda: K2.quant_recurrent_seq_scan_plain(arrays, spec, acc, st),
+            2, flush)
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = bound(*scan_bytes_ops(acc, spec))
+        rows.append(row)
+        log(f"[time] {name} B={B} T={Tx}: {row['ms']:.4f} ms (host enqueue "
+            f"{row['host_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    torch.cuda.synchronize()
+    return rows
+
+
+def time_kernels(dev, lstm_layer, gru_layer):
+    import torch
+    from repro_torch.kernels import int8_matmul as K1
+
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     gemm = []
-    for M, Kd in ((B * T, cfg.d_model), (B * T, 640), (B, cfg.d_model),
-                  (B, 640)):
-        N = 8192
+    for M, Kd, N in ((B * T, 2048, 8192), (B * T, 640, 8192),
+                     (B, 2048, 8192), (B, 640, 8192), (B * T, 2048, 6144),
+                     (B, 2048, 6144)):
         x, w, fold, _, _ = gemm_operands(M, Kd, N, gen, dev)
         row = {"M": M, "K": Kd, "N": N}
         row["ms"], row["host_ms"] = cold_ms(
@@ -410,32 +658,30 @@ def time_kernels(dev, layer, cfg):
             f"enqueue {row['host_ms']:.4f} ms), plain {row['plain_ms']:.4f} "
             f"ms, _int_mm {row['library_ms']}, bound {row['bound_ms']:.4f} "
             f"ms ({row['bound_by']})")
+    return (gemm, time_scan(dev, lstm_layer, "quant_lstm_scan", flush),
+            time_scan(dev, gru_layer, "quant_gru_scan", flush))
 
-    arrays, spec, xs_q = layer
-    scan = []
-    for Tx in (T, 1):
-        xq = xs_q[:, :Tx].contiguous()
-        acc = K1.int8_matmul_plain(xq.reshape(B * Tx, -1), arrays["W_cat"],
-                                   arrays["fold_x_cat"]).reshape(B, Tx, -1)
-        st = QL.initial_recurrent_state(spec, B, dev)
-        row = {"B": B, "T": Tx, "H": spec.cfg_d_hidden, "d_out": spec.d_out}
-        row["ms"], row["host_ms"] = cold_ms(
-            lambda: K2.quant_recurrent_seq_scan(arrays, spec, acc, st), 10,
-            flush)
-        row["plain_ms"], _ = cold_ms(
-            lambda: K2.quant_recurrent_seq_scan_plain(arrays, spec, acc, st),
-            2, flush)
-        row["library_ms"] = None
-        GH, H, d = acc.shape[-1], spec.cfg_d_hidden, spec.d_out
-        n_bytes = (B * Tx * GH * 4 + d * GH + GH * 4 + 4 * H * 6 + H * d
-                   + d * 4 + 2 * (B * d + B * H * 2) + B * Tx * d)
-        row["bound_ms"], row["bound_by"] = bound(
-            n_bytes, 2 * B * Tx * (d * GH + H * d))
-        scan.append(row)
-        log(f"[time] quant_lstm_scan B={B} T={Tx}: {row['ms']:.4f} ms (host "
-            f"enqueue {row['host_ms']:.4f} ms), plain {row['plain_ms']:.4f} "
-            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-    return gemm, scan
+
+class Phases:
+    """Seconds of each phase, printed as it ends."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.t0 = time.perf_counter()
+
+    def done(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t0
+        log(f"[phase] {name}: {self.seconds[name]:.1f}s")
+        self.t0 = now
+
+
+def kernel_entry(name, mod, launches, err, row, at, rows):
+    return {"name": name, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "at": at, "shapes": rows}
 
 
 def main() -> int:
@@ -447,6 +693,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import build
     from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import quant_gru_scan as KG
     from repro_torch.kernels import quant_lstm_scan as K2
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full
@@ -454,50 +701,61 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    phases = Phases()
 
-    t0 = time.perf_counter()
     secs = build.build_all(build.KERNELS + ("fixedpoint_check",))
-    log(f"[build] {secs} ({time.perf_counter() - t0:.1f}s wall, parallel)")
+    log(f"[build] {secs} (parallel)")
     for name in build.KERNELS:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
+    phases.done("build")
 
     check_fixedpoint(dev)
     err1 = check_gemm(dev)
-    err2, layer = check_scan(dev)
-    counts, res, cfg, spread = serve_full_width(dev)
-    gemm, scan = time_kernels(dev, layer, cfg)
+    phases.done("check fixedpoint + int8_matmul")
+    err2, lstm_layer = check_scan(dev)
+    phases.done("check quant_lstm_scan")
+    err3, gru_layer = check_gru_scan(dev)
+    phases.done("check quant_gru_scan")
+    lstm_serve, lstm_model = serve_full_width(dev, "lstm-rnnt", REPEATS)
+    phases.done("serve lstm-rnnt")
+    gru_serve, gru_model = serve_full_width(dev, "gru-rnnt", 0)
+    phases.done("serve gru-rnnt")
+    models = {"gru-rnnt": gru_model, "lstm-rnnt": lstm_model}
+    engines = []
+    for arch, policy, ratio, speculate in ENGINE_RUNS:
+        engines.append(engine_full_width(models[arch], policy, ratio,
+                                         speculate))
+        phases.done(f"engine {arch}")
+    gemm, scan, gru_scan = time_kernels(dev, lstm_layer, gru_layer)
+    phases.done("timing")
 
+    # this slice's main path is the engine on both models: its launches
+    launches = {name: sum(e["launches"][name] for e in engines)
+                for name in ("int8_matmul", "quant_lstm_scan",
+                             "quant_gru_scan")}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    head1, head2 = gemm[0], scan[0]
     kernels = [
-        {"name": "int8_matmul", "route": "cuda", "source": K1.SOURCE,
-         "replaces": K1.REPLACES, "launches": counts["int8_matmul"],
-         "max_abs_err": err1, "ms": head1["ms"],
-         "plain_ms": head1["plain_ms"], "bound_ms": head1["bound_ms"],
-         "bound_by": head1["bound_by"], "library_ms": head1["library_ms"],
-         "at": "M=B*T=128 K=2048 N=8192 int32 out (layer-0 prefill)",
-         "shapes": gemm},
-        {"name": "quant_lstm_scan", "route": "cuda", "source": K2.SOURCE,
-         "replaces": K2.REPLACES, "launches": counts["quant_lstm_scan"],
-         "max_abs_err": err2, "ms": head2["ms"],
-         "plain_ms": head2["plain_ms"], "bound_ms": head2["bound_ms"],
-         "bound_by": head2["bound_by"], "library_ms": None,
-         "at": "B=4 T=32 H=2048 d_proj=640 LN+projection (prefill layer)",
-         "shapes": scan},
+        kernel_entry("int8_matmul", K1, launches["int8_matmul"], err1,
+                     gemm[0], "M=B*T=128 K=2048 N=8192 int32 out (LSTM "
+                     "layer-0 prefill)", gemm),
+        kernel_entry("quant_lstm_scan", K2, launches["quant_lstm_scan"],
+                     err2, scan[0], "B=4 T=32 H=2048 d_proj=640 "
+                     "LN+projection (prefill layer)", scan),
+        kernel_entry("quant_gru_scan", KG, launches["quant_gru_scan"], err3,
+                     gru_scan[0], "B=4 T=32 H=2048 LN (prefill layer)",
+                     gru_scan),
     ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"gpu": smi, "build_s": secs, "kernels": kernels,
-                   "serve": {"prefill_s": res.prefill_s,
-                             "decode_s": res.decode_s, "batch": B,
-                             "prompt_len": T, "gen": GEN,
-                             "repeats": spread,
-                             "sample": res.tokens[0].tolist()}}, f, indent=1)
+                   "serve": [lstm_serve, gru_serve], "engine": engines,
+                   "batch": B, "prompt_len": T, "gen": GEN,
+                   "phase_s": phases.seconds}, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

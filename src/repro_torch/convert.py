@@ -8,7 +8,7 @@ package:
   params (bf16 stays bf16, float32 stays float32);
 * ``qlayers_from_numpy``: the reference's quantized ``[(arrays, spec)]``
   list, each spec given as ``dataclasses.asdict(spec)`` -> the port's
-  ``(arrays, QLSTMSpec)`` list.
+  ``(arrays, QLSTMSpec | QGRUSpec)`` list.
 
 With these, both packages compute on the same weights.
 """
@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from .core.recipe import GateSpec, QLSTMSpec
+from .core.recipe import GateSpec, QGRUSpec, QLSTMSpec
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -48,22 +48,28 @@ def _pair(v):
     return None if v is None else (int(v[0]), int(v[1]))
 
 
-def spec_from_dict(d: Dict[str, Any]) -> QLSTMSpec:
-    """``dataclasses.asdict`` of a reference QLSTMSpec -> the port's spec."""
-    if "use_cifg" not in d:
-        raise NotImplementedError("only LSTM layer specs are ported")
+def spec_from_dict(d: Dict[str, Any]):
+    """``dataclasses.asdict`` of a reference QLSTMSpec / QGRUSpec -> the
+    port's spec of the same cell."""
+    if "use_cifg" in d:
+        cls, pairs = QLSTMSpec, ("eff_m", "eff_proj")
+    elif "eff_carry" in d:
+        cls, pairs = QGRUSpec, ("eff_carry", "eff_n")
+    else:
+        raise NotImplementedError(
+            f"the port has LSTM and GRU layer specs, not {sorted(d)}")
     gates = tuple(
         (g, GateSpec(eff_x=_pair(gs["eff_x"]), eff_h=_pair(gs["eff_h"]),
                      eff_c=_pair(gs["eff_c"]), ln_out=_pair(gs["ln_out"])))
         for g, gs in d["gates"])
     fields = {k: v for k, v in d.items() if k != "gates"}
-    for k in ("eff_m", "eff_proj"):
+    for k in pairs:
         fields[k] = _pair(fields[k])
-    return QLSTMSpec(gates=gates, **fields)
+    return cls(gates=gates, **fields)
 
 
 def qlayers_from_numpy(qlayers, device="cpu"
-                       ) -> List[Tuple[Dict[str, Any], QLSTMSpec]]:
+                       ) -> List[Tuple[Dict[str, Any], Any]]:
     """``[(numpy arrays tree, asdict(spec))]`` -> the port's quantized layers."""
     return [(_tree(arrays, device), spec_from_dict(spec))
             for arrays, spec in qlayers]

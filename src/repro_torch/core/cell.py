@@ -4,8 +4,9 @@ A quantized layer is ``(arrays, spec)``: ``arrays`` holds the packed
 ``W_cat``/``R_cat``/``fold_x_cat``/``fold_hb_cat`` plus the cell's extras,
 and ``spec`` is a frozen dataclass naming the cell (``spec.cell``).  The
 cell's state is an ordered tuple of ``StateLeaf``; leaf 0 is the per-step
-output every executor returns as ``ys[t]``.  The port has the LSTM cell;
-the reference's GRU cell is not ported yet.
+output every executor returns as ``ys[t]``.  Registered cells: ``lstm``
+(4 gates ``[i|f|z|o]``, CIFG drops ``i``; state ``(h int8, c int16)``) and
+``gru`` (3 gates ``[r|u|n]``; state ``(h int8,)``).
 """
 from __future__ import annotations
 
@@ -43,6 +44,17 @@ class QuantRecurrentCell:
     def state_keys(self, spec) -> Tuple[str, ...]:
         return tuple(leaf.key for leaf in self.state_leaves(spec))
 
+    def reset_rows(self, spec, state: Tuple[torch.Tensor, ...], row
+                   ) -> Tuple[torch.Tensor, ...]:
+        """Reset batch row(s) ``row`` of a stacked carry to t=0 (a new
+        tuple; the input tensors are left as they were)."""
+        out = []
+        for arr, leaf in zip(state, self.state_leaves(spec)):
+            arr = arr.clone()
+            arr[row] = leaf.reset
+            out.append(arr)
+        return tuple(out)
+
     def init_state(self, spec, batch: int, device) -> Tuple[torch.Tensor, ...]:
         """t=0 carry: every leaf filled with its declared reset value."""
         return tuple(
@@ -71,7 +83,25 @@ class LSTMCell(QuantRecurrentCell):
         )
 
 
-CELLS: Dict[str, QuantRecurrentCell] = {"lstm": LSTMCell()}
+class GRUCell(QuantRecurrentCell):
+    """Integer GRU (reset-after form, so the packed GEMM holds): 3 gates
+    ``[r|u|n]``, a single int8 hidden ``h`` carry reset at ``zp_h``."""
+
+    name = "gru"
+    state_key_names = ("h",)
+
+    def gate_names(self, spec) -> Tuple[str, ...]:
+        return spec.gate_names
+
+    def d_out(self, spec) -> int:
+        return spec.cfg_d_hidden
+
+    def state_leaves(self, spec) -> Tuple[StateLeaf, ...]:
+        return (StateLeaf("h", torch.int8, spec.cfg_d_hidden,
+                          spec.zp_h_out),)
+
+
+CELLS: Dict[str, QuantRecurrentCell] = {"lstm": LSTMCell(), "gru": GRUCell()}
 
 
 def get_cell(spec) -> QuantRecurrentCell:

@@ -1,8 +1,8 @@
-"""The paper's quantization recipe (Table 2): float LSTM cell -> integer cell.
+"""The paper's quantization recipe (Table 2): float cell -> integer cell.
 
-Port of the LSTM half of ``repro.core.recipe``.  Given calibrated ``Stats``
-and float parameters it produces (a) a dict of integer tensors and (b) a
-frozen ``QLSTMSpec`` holding every derived scale and fixed-point
+Port of ``repro.core.recipe``.  Given calibrated ``Stats`` and float
+parameters it produces (a) a dict of integer tensors and (b) a frozen
+``QLSTMSpec`` / ``QGRUSpec`` holding every derived scale and fixed-point
 multiplier.  All real-valued scale arithmetic runs here, offline, in
 float64 numpy exactly as in the reference, so both packages emit the same
 integers from the same inputs.
@@ -15,6 +15,7 @@ Recipe summary (Table 2):
   b_proj       int32 at s_Wproj*s_m
   c            int16 symmetric POT(max)/32768  => Q_{m.15-m}
   gates (noLN) int16 Q3.12 (2**-12)  |  gates (LN) int16 max|g|/32767
+The GRU reuses the x/h/W/R/b/gate rows.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 from . import fixedpoint as fp
 from . import qtypes as qt
 from .calibrate import Stats
+from ..models.gru import GRUConfig, GRUVariant
 from ..models.lstm import LSTMConfig, LSTMVariant
 
 MulPair = Tuple[int, int]  # (m0, shift) from fp.quantize_multiplier
@@ -74,8 +76,53 @@ class QLSTMSpec:
                            self.use_peephole, self.use_cifg)
 
     @property
+    def gate_names(self) -> Tuple[str, ...]:
+        return self.variant.gates
+
+    @property
     def d_out(self) -> int:
         return self.cfg_d_proj if self.use_projection else self.cfg_d_hidden
+
+    def gate_spec(self, g: str) -> GateSpec:
+        return dict(self.gates)[g]
+
+
+@dataclasses.dataclass(frozen=True)
+class QGRUSpec:
+    """Static (hashable) integer-execution plan for one GRU layer.
+
+    The GRU feeds its int8 hidden straight back, so the recipe uses ONE
+    hidden format (the union of the ``h`` and ``h_out`` taps) and the carry
+    update ``u (.) h`` needs only ``eff_carry`` = 2**-15.
+    """
+
+    cfg_d_input: int
+    cfg_d_hidden: int
+    use_layernorm: bool
+    zp_x: int
+    zp_h: int
+    zp_h_out: int  # == zp_h (single hidden format)
+    gates: Tuple[Tuple[str, GateSpec], ...]  # ("r"|"u"|"n", GateSpec)
+    eff_carry: MulPair  # 2**-15       : u (.) (h - zp_h)  -> h units
+    eff_n: MulPair  # 2**-30 / s_h : (1 - u) (.) n_act -> h units
+    s_x: float
+    s_h: float
+
+    @property
+    def cell(self) -> str:
+        return "gru"
+
+    @property
+    def variant(self) -> GRUVariant:
+        return GRUVariant(self.use_layernorm)
+
+    @property
+    def gate_names(self) -> Tuple[str, ...]:
+        return tuple(g for g, _ in self.gates)
+
+    @property
+    def d_out(self) -> int:
+        return self.cfg_d_hidden
 
     def gate_spec(self, g: str) -> GateSpec:
         return dict(self.gates)[g]
@@ -103,6 +150,52 @@ def _pack_gate_blocks(arrays: Dict[str, Any],
     for name, key in (("fold_x_cat", "fold_x"), ("fold_hb_cat", "fold_hb")):
         arrays[name] = torch.from_numpy(np.concatenate(
             [per_gate[key][g] for g in gate_order])).to(device)
+
+
+def _quantize_gate(params: Dict[str, Any], g: str, stats: Stats, prefix: str,
+                   use_ln: bool, s_x: float, zp_x: int, s_h: float, zp_h: int,
+                   per_gate: Dict[str, Dict[str, np.ndarray]],
+                   arrays: Dict[str, Any], device):
+    """The Table-2 rows every cell shares, for one gate: int8 W and R
+    (symmetric), the folded zero points and bias, the LN vectors.  Fills
+    ``per_gate`` and ``arrays``; returns ``(s_gate, GateSpec)`` with no
+    peephole (``eff_c``) -- the cell adds its own extras."""
+    W = _np(params["W"][g])
+    R = _np(params["R"][g])
+    b = _np(params["b"][g])
+    s_W = qt.symmetric_scale(np.abs(W).max(), 8)
+    s_R = qt.symmetric_scale(np.abs(R).max(), 8)
+    Wq = np.clip(np.round(W / s_W), -127, 127).astype(np.int8)
+    Rq = np.clip(np.round(R / s_R), -127, 127).astype(np.int8)
+    per_gate["W"][g] = Wq
+    per_gate["R"][g] = Rq
+    # gate output scale: Q3.12 without LN, measured/32767 with LN
+    if use_ln:
+        s_gate = qt.symmetric_scale(stats.max_abs(prefix + f"g_{g}"), 16)
+    else:
+        s_gate = 2.0**-12
+    # zero-point folding (sec 6): W(x - zp) == Wx - colsum(W)*zp
+    per_gate["fold_x"][g] = _i32(-Wq.astype(np.int64).sum(axis=0) * zp_x)
+    fold_h = -Rq.astype(np.int64).sum(axis=0) * zp_h
+    if not use_ln:
+        # bias carried at s_R*s_h into the recurrent accumulator (3.2.4); for
+        # the GRU's "n" it sits INSIDE the reset product (reset-after form)
+        fold_h = fold_h + np.round(b / (s_R * s_h))
+    per_gate["fold_hb"][g] = _i32(fold_h)
+
+    ln_out = None
+    if use_ln:
+        L = _np(params["L"][g])
+        s_L = qt.symmetric_scale(np.abs(L).max(), 16)
+        Lq = np.clip(np.round(L / s_L), -32767, 32767).astype(np.int16)
+        arrays.setdefault("L", {})[g] = torch.from_numpy(Lq).to(device)
+        # LN bias at 2**-10 * s_L (Table 2)
+        arrays.setdefault("Lb", {})[g] = torch.from_numpy(
+            _i32(np.round(b / (2.0**-10 * s_L)))).to(device)
+        ln_out = fp.quantize_multiplier(2.0**-10 * s_L / 2.0**-12)
+    return s_gate, GateSpec(eff_x=fp.quantize_multiplier(s_W * s_x / s_gate),
+                            eff_h=fp.quantize_multiplier(s_R * s_h / s_gate),
+                            eff_c=None, ln_out=ln_out)
 
 
 def quantize_lstm_layer(params: Dict[str, Any], cfg: LSTMConfig,
@@ -145,50 +238,17 @@ def quantize_lstm_layer(params: Dict[str, Any], cfg: LSTMConfig,
         "W": {}, "R": {}, "fold_x": {}, "fold_hb": {}}
     gate_specs = []
     for g in v.gates:
-        W = _np(params["W"][g])
-        R = _np(params["R"][g])
-        b = _np(params["b"][g])
-        s_W = qt.symmetric_scale(np.abs(W).max(), 8)
-        s_R = qt.symmetric_scale(np.abs(R).max(), 8)
-        Wq = np.clip(np.round(W / s_W), -127, 127).astype(np.int8)
-        Rq = np.clip(np.round(R / s_R), -127, 127).astype(np.int8)
-        per_gate["W"][g] = Wq
-        per_gate["R"][g] = Rq
-        if v.use_layernorm:
-            s_gate = qt.symmetric_scale(max_abs(f"g_{g}"), 16)
-        else:
-            s_gate = 2.0**-12
-        # zero-point folding (sec 6): W(x - zp) == Wx - colsum(W)*zp
-        per_gate["fold_x"][g] = _i32(-Wq.astype(np.int64).sum(axis=0) * zp_x)
-        fold_h = -Rq.astype(np.int64).sum(axis=0) * zp_h
-        if not v.use_layernorm:
-            # bias carried at s_R*s_h into the recurrent accumulator (3.2.4)
-            fold_h = fold_h + np.round(b / (s_R * s_h))
-        per_gate["fold_hb"][g] = _i32(fold_h)
-
-        eff_c = None
+        s_gate, gs = _quantize_gate(params, g, stats, prefix, v.use_layernorm,
+                                    s_x, zp_x, s_h, zp_h, per_gate, arrays,
+                                    device)
         if v.use_peephole and g != "z":
             P = _np(params["P"][g])
             s_P = qt.symmetric_scale(np.abs(P).max(), 16)
             Pq = np.clip(np.round(P / s_P), -32767, 32767).astype(np.int16)
             arrays.setdefault("P", {})[g] = to_dev(Pq)
-            eff_c = fp.quantize_multiplier(s_P * s_c / s_gate)
-
-        ln_out = None
-        if v.use_layernorm:
-            L = _np(params["L"][g])
-            s_L = qt.symmetric_scale(np.abs(L).max(), 16)
-            Lq = np.clip(np.round(L / s_L), -32767, 32767).astype(np.int16)
-            arrays.setdefault("L", {})[g] = to_dev(Lq)
-            # LN bias at 2**-10 * s_L (Table 2)
-            arrays.setdefault("Lb", {})[g] = to_dev(
-                _i32(np.round(b / (2.0**-10 * s_L))))
-            ln_out = fp.quantize_multiplier(2.0**-10 * s_L / 2.0**-12)
-
-        gate_specs.append((g, GateSpec(
-            eff_x=fp.quantize_multiplier(s_W * s_x / s_gate),
-            eff_h=fp.quantize_multiplier(s_R * s_h / s_gate),
-            eff_c=eff_c, ln_out=ln_out)))
+            gs = dataclasses.replace(
+                gs, eff_c=fp.quantize_multiplier(s_P * s_c / s_gate))
+        gate_specs.append((g, gs))
 
     _pack_gate_blocks(arrays, per_gate, v.gates, device)
 
@@ -212,4 +272,51 @@ def quantize_lstm_layer(params: Dict[str, Any], cfg: LSTMConfig,
         cell_int_bits=m_c, gates=tuple(gate_specs),
         eff_m=fp.quantize_multiplier(2.0**-30 / s_m), eff_proj=eff_proj,
         s_x=s_x, s_h=s_h, s_m=s_m, s_c=s_c)
+    return arrays, spec
+
+
+def quantize_gru_layer(params: Dict[str, Any], cfg: GRUConfig, stats: Stats,
+                       prefix: str = "", device=None
+                       ) -> Tuple[Dict[str, Any], QGRUSpec]:
+    """Apply Table 2 to one GRU layer.  Returns (integer arrays, spec).
+
+    The LSTM's recipe rows, specialized to the reset-after GRU:
+
+      r, u  : sigmoid_q15(rescale(acc_x) + rescale(acc_h))      [LN'd first]
+      n     : tanh_q15(rescale(acc_x_n) + rdp(r * rescale(acc_h_n), 15))
+      h'    : sat8(mbqm(u*(h - zp_h), 2**-15)
+                   + mbqm((2**15 - u)*n, 2**-30/s_h) + zp_h)
+
+    The arrays land on ``device`` (default: where ``params`` live).
+    """
+    v = cfg.variant
+    if device is None:
+        device = params["W"][v.gates[0]].device
+
+    def rng(name):
+        return stats.range(prefix + name)
+
+    # one hidden format for the input AND output taps
+    s_x, zp_x = qt.asymmetric_scale_zp(*rng("x"), 8)
+    lo_in, hi_in = rng("h")
+    lo_out, hi_out = rng("h_out")
+    s_h, zp_h = qt.asymmetric_scale_zp(min(lo_in, lo_out),
+                                       max(hi_in, hi_out), 8)
+
+    arrays: Dict[str, Any] = {}
+    per_gate: Dict[str, Dict[str, np.ndarray]] = {
+        "W": {}, "R": {}, "fold_x": {}, "fold_hb": {}}
+    gate_specs = [(g, _quantize_gate(params, g, stats, prefix,
+                                     v.use_layernorm, s_x, zp_x, s_h, zp_h,
+                                     per_gate, arrays, device)[1])
+                  for g in v.gates]
+
+    _pack_gate_blocks(arrays, per_gate, v.gates, device)
+
+    spec = QGRUSpec(
+        cfg_d_input=cfg.d_input, cfg_d_hidden=cfg.d_hidden,
+        use_layernorm=v.use_layernorm, zp_x=zp_x, zp_h=zp_h, zp_h_out=zp_h,
+        gates=tuple(gate_specs),
+        eff_carry=fp.quantize_multiplier(2.0**-15),
+        eff_n=fp.quantize_multiplier(2.0**-30 / s_h), s_x=s_x, s_h=s_h)
     return arrays, spec

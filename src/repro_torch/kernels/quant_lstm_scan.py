@@ -1,10 +1,12 @@
-"""Persistent integer LSTM sequence kernel: CUDA launch + plain version.
+"""Persistent integer sequence kernels: CUDA dispatch + plain version.
 
 Port of ``repro.kernels.quant_lstm_scan.quant_recurrent_seq_scan_pallas``:
 the recurrent stage of a whole sequence in ONE launch per layer, the time
-loop inside the kernel (``csrc/quant_lstm_scan.cu``).  CUDA tensors launch
-the kernel; CPU tensors take ``quant_recurrent_seq_scan_plain``, a Python
-loop over ``ref.recurrent_step``.  The masked form (``valid_len``) freezes
+loop inside the kernel.  CUDA tensors launch the kernel of the layer's
+cell: ``csrc/quant_lstm_scan.cu`` (here) for an LSTM,
+``csrc/quant_gru_scan.cu`` (``quant_gru_scan``) for a GRU.  CPU tensors
+take ``quant_recurrent_seq_scan_plain``, a Python loop over
+``ref.recurrent_step``.  The masked form (``valid_len``) freezes
 row b for t >= valid_len[b] and still emits its unchanged h at ys[b, t].
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import build
+from . import quant_gru_scan
 from . import ref
 
 SOURCE = "src/repro_torch/csrc/quant_lstm_scan.cu"
@@ -74,9 +77,11 @@ def quant_recurrent_seq_scan(
         return quant_recurrent_seq_scan_plain(arrays, spec, acc_x_all, state0,
                                               valid_len)
     cell = getattr(spec, "cell", "lstm")
+    if cell == "gru":
+        return quant_gru_scan.quant_gru_seq_scan(arrays, spec, acc_x_all,
+                                                 state0, valid_len)
     if cell != "lstm":
-        raise NotImplementedError(
-            f"the CUDA sequence kernel runs LSTM layers only, not {cell!r}")
+        raise NotImplementedError(f"no CUDA sequence kernel for cell {cell!r}")
     B, T, GH = acc_x_all.shape
     H, d_out = spec.cfg_d_hidden, spec.d_out
     gates = spec.variant.gates

@@ -1,9 +1,10 @@
 """Plain PyTorch step math of the integer recurrent stage.
 
-Port of the LSTM half of ``repro.kernels.ref``.  These functions are the
-CPU path of the sequence executor and the oracle that the CUDA sequence
-kernel (``csrc/quant_lstm_scan.cu``) is held against on the card: same
-gate order, same rescale order, same saturations.
+Port of the step math of ``repro.kernels.ref`` (LSTM and reset-after
+GRU).  These functions are the CPU path of the sequence executor and the
+oracle that the CUDA sequence kernels (``csrc/quant_lstm_scan.cu``,
+``csrc/quant_gru_scan.cu``) are held against on the card: same gate order,
+same rescale order, same saturations.
 """
 from __future__ import annotations
 
@@ -124,6 +125,66 @@ def quant_lstm_recurrent(vals, spec, acc_x_t, h_q, c_q):
     return lstm_project(vals, spec, m_q), c_new
 
 
+def gru_gate_preacts(vals, spec, acc_x, acc_h):
+    """Per-step GRU gate pre-activations from the packed ``[r|u|n]`` int32
+    accumulators (reset-after form).
+
+    ``r``/``u`` follow the LSTM gate path: rescale both accumulators,
+    saturating-add, sat16, LN if the layer has it, ``sigmoid_q15(., 3)``.
+    The candidate ``n`` applies ``r`` (Q0.15) to the *rescaled* recurrent
+    term, ``rdbpot(r * gh16, 15)``, before adding the input term.  Returns
+    ``(r15, u15, n16)``: r/u as int32 Q0.15 activations, n as the int16
+    pre-tanh value.
+    """
+    H = spec.cfg_d_hidden
+
+    def block(g):
+        k = spec.gate_names.index(g)
+        return acc_x[..., k * H:(k + 1) * H], acc_h[..., k * H:(k + 1) * H]
+
+    def maybe_ln(g, gate16):
+        if spec.use_layernorm:
+            return iops.integer_layernorm(gate16, vals["L"][g], vals["Lb"][g],
+                                          *spec.gate_spec(g).ln_out)
+        return gate16
+
+    acts = {}
+    for g in ("r", "u"):
+        gs = spec.gate_spec(g)
+        ax, ah = block(g)
+        gate16 = fp.saturate_i16(fp.saturating_add_i32(
+            fp.multiply_by_quantized_multiplier(ax, *gs.eff_x),
+            fp.multiply_by_quantized_multiplier(ah, *gs.eff_h)))
+        acts[g] = fp.sigmoid_q15(maybe_ln(g, gate16), 3).to(torch.int32)
+
+    gs = spec.gate_spec("n")
+    ax, ah = block("n")
+    gh16 = fp.saturate_i16(
+        fp.multiply_by_quantized_multiplier(ah, *gs.eff_h)).to(torch.int32)
+    rg = fp.rounding_divide_by_pot(acts["r"] * gh16, 15)  # |r*gh| < 2**30
+    n16 = fp.saturate_i16(fp.saturating_add_i32(
+        fp.multiply_by_quantized_multiplier(ax, *gs.eff_x), rg))
+    return acts["r"], acts["u"], maybe_ln("n", n16)
+
+
+def quant_gru_recurrent(vals, spec, acc_x_t, h_q):
+    """One GRU timestep given the hoisted input accumulator slice.
+
+    ``h' = sat8(MBQM(u*(h - zp_h), eff_carry) sat+ MBQM((32768 - u)*n,
+    eff_n) + zp_h_out)``; both products fit int32 (< 2**23 and < 2**30).
+    """
+    acc_h = fp._wrap32(iops.matmul_i8_i32(h_q, vals["R_cat"]).to(torch.int64)
+                       + vals["fold_hb_cat"].to(torch.int64))
+    _, u15, n16 = gru_gate_preacts(vals, spec, acc_x_t, acc_h)
+    n_act = fp.tanh_q15(n16, 3).to(torch.int32)
+    carry = u15 * (h_q.to(torch.int32) - spec.zp_h)
+    blend = (32768 - u15) * n_act
+    h_new = fp.saturating_add_i32(
+        fp.multiply_by_quantized_multiplier(carry, *spec.eff_carry),
+        fp.multiply_by_quantized_multiplier(blend, *spec.eff_n))
+    return fp.saturate_i8(fp._wrap32(h_new.to(torch.int64) + spec.zp_h_out))
+
+
 def recurrent_step(vals, spec, acc_x_t, state: Tuple[torch.Tensor, ...]
                    ) -> Tuple[torch.Tensor, ...]:
     """One timestep of the layer's cell over its flat state tuple (leaf 0
@@ -131,6 +192,7 @@ def recurrent_step(vals, spec, acc_x_t, state: Tuple[torch.Tensor, ...]
     cell = getattr(spec, "cell", "lstm")
     if cell == "lstm":
         return quant_lstm_recurrent(vals, spec, acc_x_t, state[0], state[1])
-    raise NotImplementedError(
-        f"no recurrent step for cell {cell!r} in this port yet")
+    if cell == "gru":
+        return (quant_gru_recurrent(vals, spec, acc_x_t, state[0]),)
+    raise NotImplementedError(f"no recurrent step for cell {cell!r}")
 

@@ -1,13 +1,21 @@
-"""Static-batch integer serving of the recurrent LM on the GPU.
+"""Integer serving of the recurrent LM (LSTM or GRU) on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch lstm-rnnt \
         --quant int8-lstm --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-rnnt \
+        --quant int8-gru --engine --slots 4 --requests 12 --chunk 4 \
+        --speculate 4 --policy srf --oversubscribe 2.0
 
-Seeded float init, calibration and the Table-2 recipe, then ONE integer
-prefill over the prompt and a greedy decode loop.  Every layer of every
-call launches the int8 GEMM kernel once (hoisted input stage) and the
-sequence kernel once (recurrent stage).  ``--device cpu`` runs the same
-path through the kernels' plain versions.
+Seeded float init, calibration and the Table-2 recipe, then either the
+static batch (ONE integer prefill over the prompt and a greedy decode
+loop) or, with ``--engine``, a queue of requests served by the
+continuous-batching engine (``launch/engine.py``: chunked prefill
+``--chunk``, speculative decoding ``--speculate``, scheduling ``--policy``
+with preemption through the state pool under ``--oversubscribe``).  The
+workload is synthetic (``--requests N``) or a JSON trace (``--trace``).
+Every layer of every step launches the int8 GEMM kernel once (hoisted input
+stage) and the cell's sequence kernel once (recurrent stage).  ``--device
+cpu`` runs the same path through the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -19,8 +27,22 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..configs.registry import get_config
-from ..kernels import int8_matmul, quant_lstm_scan
+from ..kernels import int8_matmul, quant_gru_scan, quant_lstm_scan
 from ..models import lstm_lm
+from . import engine as E
+
+KERNELS = {"int8_matmul": int8_matmul, "quant_lstm_scan": quant_lstm_scan,
+           "quant_gru_scan": quant_gru_scan}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch counter, by kernel name."""
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
 
 
 @dataclasses.dataclass
@@ -57,7 +79,7 @@ def serve(params, qlayers, cfg, prompt: torch.Tensor, n_gen: int
           ) -> ServeResult:
     """Integer prefill of ``prompt`` (B, T) then ``n_gen`` greedy tokens."""
     device = prompt.device
-    counts0 = (int8_matmul.launches, quant_lstm_scan.launches)
+    counts0 = launch_counts()
     state = lstm_lm.init_quant_decode_state(qlayers, prompt.shape[0], device)
     _sync(device)
     t0 = time.perf_counter()
@@ -84,8 +106,7 @@ def serve(params, qlayers, cfg, prompt: torch.Tensor, n_gen: int
         tokens=torch.cat(out, dim=1) if out else empty,
         prefill_s=t1 - t0, decode_s=t2 - t1, states=states,
         decode_inputs=torch.cat(fed, dim=1) if fed else empty,
-        launches={"int8_matmul": int8_matmul.launches - counts0[0],
-                  "quant_lstm_scan": quant_lstm_scan.launches - counts0[1]})
+        launches={k: v - counts0[k] for k, v in launch_counts().items()})
 
 
 def random_prompt(cfg, batch: int, prompt_len: int, device, seed: int = 1):
@@ -94,30 +115,128 @@ def random_prompt(cfg, batch: int, prompt_len: int, device, seed: int = 1):
                          generator=gen, device=device)
 
 
+def engine_requests(args, cfg) -> List[E.Request]:
+    """The engine workload of the CLI: a JSON trace or the synthetic one
+    (seed 1, prompt lengths (P/2, P), budgets (G/2, G)), as in the
+    reference launcher."""
+    if args.trace:
+        return E.load_trace(args.trace, cfg.vocab_size, seed=1)
+    return E.synthetic_trace(
+        args.requests, cfg.vocab_size, seed=1,
+        prompt_lens=(args.prompt_len // 2 or 1, args.prompt_len),
+        gen_lens=(args.gen // 2 or 1, args.gen))
+
+
+def print_engine_stats(stats: E.EngineStats, n_results: int,
+                       n_requests: int) -> None:
+    """The reference launcher's engine stats lines."""
+    print(f"served {n_results}/{n_requests} requests in "
+          f"{stats.wall_s:.2f}s ({stats.steps} steps)")
+    print(f"decode tokens/s: {stats.tokens_per_s:.1f} "
+          f"(+{stats.prompt_tokens} prompt tokens)")
+    print(f"slot occupancy: {stats.occupancy:.2f}")
+    print(f"mean TTFT: {stats.mean_ttft_steps:.1f} steps / "
+          f"{stats.mean_ttft_s * 1e3:.1f} ms; "
+          f"mean stream tokens/s: {stats.mean_stream_tokens_per_s:.1f}")
+    if stats.preemptions or stats.resumes or stats.rejected \
+            or stats.oversubscribe > 1:
+        print(f"scheduling: peak live {stats.peak_live} "
+              f"(slots={stats.n_slots}), {stats.preemptions} preemptions, "
+              f"{stats.resumes} resumes, {stats.rejected} rejected, "
+              f"{stats.pool_state_bytes} B/stream parked state")
+    if stats.speculate:
+        print(f"speculation: accept rate {stats.accept_rate:.2f} "
+              f"({stats.accepted_draft_tokens}/{stats.drafted_tokens} "
+              f"drafts), {stats.accepted_tokens_per_spec_step:.2f} "
+              f"tokens/slot-step over {stats.spec_slot_steps} speculating "
+              f"slot-steps ({stats.spec_steps} verify steps)")
+
+
+def _serve_engine(args, cfg, params, qlayers, device) -> None:
+    requests = engine_requests(args, cfg)
+    if not requests:
+        raise SystemExit("engine: empty workload (use --requests N >= 1 or "
+                         "a non-empty --trace)")
+    eng = E.ContinuousBatchingEngine(
+        params, qlayers, cfg, n_slots=args.slots, chunk=args.chunk,
+        speculate=args.speculate, policy=args.policy,
+        oversubscribe=args.oversubscribe)
+    eng.submit_all(requests)
+    counts0 = launch_counts()
+    results, stats = eng.run()
+    print(f"arch={cfg.name} quant={args.quant} engine slots={args.slots} "
+          f"chunk={args.chunk} speculate={args.speculate} "
+          f"policy={stats.policy} oversubscribe={stats.oversubscribe} "
+          f"device={device}")
+    print_engine_stats(stats, len(results), len(requests))
+    print("kernel launches:", " ".join(
+        f"{k}={v - counts0[k]}" for k, v in launch_counts().items()))
+    print("sample:", results[requests[0].rid].tokens)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--quant", required=True, choices=["int8-lstm"])
+    ap.add_argument("--quant", required=True,
+                    choices=["int8-lstm", "int8-gru"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--engine", action="store_true",
+                    help="serve a request queue through the "
+                         "continuous-batching engine")
+    ap.add_argument("--slots", type=int, default=8,
+                    help="decode-batch rows of the engine")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="synthetic workload size for --engine")
+    ap.add_argument("--trace", default=None,
+                    help="JSON request trace for --engine "
+                         "(see launch/engine.py:load_trace)")
+    ap.add_argument("--chunk", type=int, default=1,
+                    help="prefill chunk size K for --engine: up to K prompt "
+                         "tokens per slot per step, bit-exact vs 1")
+    ap.add_argument("--speculate", type=int, default=0,
+                    help="draft budget k for --engine speculative decoding "
+                         "(n-gram drafter, one (S, k+1) verify per step), "
+                         "bit-exact vs 0")
+    ap.add_argument("--policy", default="fifo",
+                    help="slot-scheduling policy for --engine (fifo | "
+                         "priority | srf | rr | fifo-reject)")
+    ap.add_argument("--oversubscribe", type=float, default=1.0,
+                    help="admission headroom for --engine as a multiple of "
+                         "--slots (streams beyond the slots are parked in "
+                         "the state pool by preempting policies)")
     args = ap.parse_args(argv)
     if args.prompt_len < 1:
         ap.error("--prompt-len must be >= 1")
+    if args.chunk < 1:
+        ap.error("--chunk must be >= 1")
+    if args.speculate < 0:
+        ap.error("--speculate must be >= 0")
+    if args.oversubscribe < 1.0:
+        ap.error("--oversubscribe must be >= 1.0")
+    if not args.engine and (args.policy != "fifo" or args.oversubscribe > 1.0
+                            or args.speculate or args.chunk > 1):
+        ap.error("--chunk/--speculate/--policy/--oversubscribe require "
+                 "--engine")
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.family != "lstm" or lstm_lm.rnn_cell(cfg) != "lstm":
-        raise SystemExit(f"--quant int8-lstm needs an LSTM stack, got "
-                         f"{cfg.name}")
+    want = args.quant.split("-", 1)[1]  # int8-gru -> gru
+    if cfg.family != "lstm" or lstm_lm.rnn_cell(cfg) != want:
+        raise SystemExit(f"--quant {args.quant} needs a {want.upper()} stack, "
+                         f"got {cfg.name}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
                          "versions")
     t0 = time.perf_counter()
     params, qlayers = build_model(cfg, args.batch, args.prompt_len, device)
-    print(f"calibrated+quantized {len(qlayers)} LSTM layers in "
+    print(f"calibrated+quantized {len(qlayers)} {want.upper()} layers in "
           f"{time.perf_counter() - t0:.1f}s (device={device})")
+    if args.engine:
+        _serve_engine(args, cfg, params, qlayers, device)
+        return
     prompt = random_prompt(cfg, args.batch, args.prompt_len, device)
     res = serve(params, qlayers, cfg, prompt, args.gen)
     print(f"arch={cfg.name} quant={args.quant} device={device}")

@@ -1,4 +1,4 @@
-"""Integer-only LSTM layer execution (paper sec 3.2).
+"""Integer-only recurrent layer execution (paper sec 3.2), any cell.
 
 Port of the serving half of ``repro.models.quant_lstm``.  The only float
 touch points are the boundary helpers ``quantize_input`` and
@@ -45,6 +45,13 @@ def initial_recurrent_state(spec, batch: int, device
                             ) -> Tuple[torch.Tensor, ...]:
     """t=0 state tuple for any registered cell (``core/cell.py``)."""
     return rcell.get_cell(spec).init_state(spec, batch, device)
+
+
+def reset_recurrent_state_rows(spec, state: Tuple[torch.Tensor, ...], row
+                               ) -> Tuple[torch.Tensor, ...]:
+    """Reset batch row ``row`` of one layer's state tuple to t=0 (a new
+    tuple; the engine's slot reset)."""
+    return rcell.get_cell(spec).reset_rows(spec, state, row)
 
 
 def quant_recurrent_layer(

@@ -76,6 +76,82 @@ def test_scan_kernel_matches_plain(cuda, vi):
             assert torch.equal(c, pc)
 
 
+def _gru_layer(cuda, ln, seed, d_in=9, H=13, B=3, T=5):
+    """A small GRU layer quantized by the port's own recipe on the card."""
+    from repro_torch.core import recipe as R
+    from repro_torch.core.calibrate import Stats, TapCollector
+    from repro_torch.models import gru as G
+
+    cfg = G.GRUConfig(d_in, H, G.GRUVariant(use_layernorm=ln))
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    params = G.init_gru_params(gen, cfg, cuda)
+    if ln:
+        for g in params["L"]:
+            params["L"][g] = 1.0 + 0.3 * torch.randn(H, generator=gen,
+                                                     device=cuda)
+    xs = 0.8 * torch.randn((B, T, d_in), generator=gen, device=cuda)
+    col = TapCollector()
+    G.gru_layer(params, cfg, xs, collector=col)
+    stats = Stats()
+    stats.merge(col.snapshot())
+    return R.quantize_gru_layer(params, cfg, stats), xs
+
+
+@pytest.mark.parametrize("ln", [False, True], ids=["noLN", "LN"])
+def test_gru_scan_kernel_matches_plain(cuda, ln):
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import quant_gru_scan as KG
+    from repro_torch.kernels import quant_lstm_scan as K2
+    from repro_torch.models import quant_lstm as QL
+
+    (arrays, spec), xs = _gru_layer(cuda, ln, seed=int(ln))
+    xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+    acc = K1.int8_matmul_plain(xs_q.reshape(15, 9), arrays["W_cat"],
+                               arrays["fold_x_cat"]).reshape(3, 5, -1)
+    state0 = QL.initial_recurrent_state(spec, 3, cuda)
+    _, carried = K2.quant_recurrent_seq_scan_plain(arrays, spec, acc, state0)
+    assert bool(carried[0].ne(spec.zp_h).any())
+    for a, st in ((acc, state0), (acc[:, :1].contiguous(), carried)):
+        for vl in (None, torch.tensor([5, 0, 1], dtype=torch.int32,
+                                      device=cuda)):
+            before = KG.launches
+            ys, (h,) = K2.quant_recurrent_seq_scan(arrays, spec, a, st, vl)
+            assert KG.launches == before + 1
+            pys, (ph,) = K2.quant_recurrent_seq_scan_plain(arrays, spec, a,
+                                                           st, vl)
+            assert torch.equal(ys, pys) and torch.equal(h, ph)
+
+
+def test_cuda_gru_layer_never_reaches_plain(cuda, monkeypatch):
+    """With every plain version made to raise, a CUDA GRU layer still runs:
+    nothing on the CUDA path falls back to the plain versions."""
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import quant_gru_scan as KG
+    from repro_torch.kernels import quant_lstm_scan as K2
+    from repro_torch.kernels import ref
+    from repro_torch.models import quant_lstm as QL
+
+    (arrays, spec), xs = _gru_layer(cuda, True, seed=5)
+    xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((K2, "quant_recurrent_seq_scan_plain"),
+                      (K1, "int8_matmul_plain"), (ref, "recurrent_step"),
+                      (ref, "quant_gru_recurrent")):
+        monkeypatch.setattr(mod, name, refuse)
+    before = (K1.launches, KG.launches)
+    ys, (h,) = QL.quant_recurrent_layer(arrays, spec, xs_q)
+    ys_m, _ = QL.quant_recurrent_layer(
+        arrays, spec, xs_q,
+        valid_len=torch.tensor([5, 2, 0], dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert (K1.launches, KG.launches) == (before[0] + 2, before[1] + 2)
+    assert ys.shape == (3, 5, 13) and ys.is_cuda
+    assert torch.equal(ys_m[0], ys[0])
+
+
 def test_fixedpoint_header_on_card_matches_port(cuda):
     from repro_torch.kernels import fixedpoint_check as FC
 
@@ -94,5 +170,29 @@ def test_serve_smoke_launches_each_kernel_per_layer_and_step(cuda):
     res = serve.serve(params, qlayers, cfg, serve.random_prompt(cfg, 2, 5, cuda),
                       3)
     expect = cfg.n_layers * (1 + 3)
-    assert res.launches == {"int8_matmul": expect, "quant_lstm_scan": expect}
+    assert res.launches == {"int8_matmul": expect, "quant_lstm_scan": expect,
+                            "quant_gru_scan": 0}
     assert tuple(res.tokens.shape) == (2, 3)
+
+
+def test_engine_smoke_gru_launches_and_matches_decode_single(cuda):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import engine as E
+    from repro_torch.launch import serve
+
+    cfg = get_config("gru-rnnt", smoke=True)
+    params, qlayers = serve.build_model(cfg, 2, 8, cuda)
+    requests = E.synthetic_trace(6, cfg.vocab_size, seed=3,
+                                 prompt_lens=(3, 6), gen_lens=(2, 5))
+    eng = E.ContinuousBatchingEngine(params, qlayers, cfg, n_slots=2,
+                                     chunk=4, speculate=2, policy="srf",
+                                     oversubscribe=2.0)
+    eng.submit_all(requests)
+    serve.reset_launch_counts()
+    results, stats = eng.run()
+    counts = serve.launch_counts()
+    assert counts["quant_gru_scan"] > 0 and counts["quant_lstm_scan"] == 0
+    assert counts["int8_matmul"] == counts["quant_gru_scan"]
+    for r in requests:
+        assert results[r.rid].tokens == E.decode_single(
+            params, qlayers, cfg, r.prompt, r.max_new_tokens)

@@ -156,17 +156,18 @@ def test_full_width_layer_step_on_cpu():
 
 
 def test_gru_spec_is_refused():
-    """The GRU is not ported: its spec does not convert, and a spec naming
-    another cell is refused by the sequence executor, never run as LSTM."""
+    """A cell the port does not have is refused, never run as an LSTM: its
+    spec does not convert, and a spec naming it is refused by the sequence
+    executor.  (The GRU itself is ported: see ``test_torch_gru.py``.)"""
     with pytest.raises(NotImplementedError):
         convert.spec_from_dict({"cfg_d_input": 8, "gates": ()})
     xs_q, arrays, spec, t_arrays, t_spec = _case(JL.ALL_VARIANTS[0])
 
-    class GRUNamed:
-        cell = "gru"
+    class OtherCellNamed:
+        cell = "mgu"
 
     acc = tops.quant_recurrent_input_proj(t_arrays,
                                           torch.from_numpy(np.array(xs_q)))
     state = TQL.initial_recurrent_state(t_spec, acc.shape[0], "cpu")
     with pytest.raises(NotImplementedError):
-        tscan.quant_recurrent_seq_scan(t_arrays, GRUNamed(), acc, state)
+        tscan.quant_recurrent_seq_scan(t_arrays, OtherCellNamed(), acc, state)
