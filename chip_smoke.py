@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. builds the three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+1. builds the five CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    each, in parallel, beside the header check of step 2) and prints the
    build seconds and ptxas resource lines;
 2. holds the kernels' fixed-point header, compiled for the card, against
@@ -12,39 +12,62 @@
 3. holds the int8 GEMM kernel bit for bit against its plain version on the
    card at the serving shapes (M in {B, B*T}, K in {2048, 640}, N = 8192),
    ragged shapes and the int8/int16 epilogues;
-4. holds the LSTM sequence kernel against its plain version: all 16 LSTM
+4. holds the fused LSTM cell kernel against its plain version at (B, H) in
+   {(8, 256), (16, 1024), (4, 2048)} x CIFG on/off x cell formats Q0/Q2/Q4,
+   and its peephole o gate with and without the in-fusion LayerNorm at
+   H = 2048; and the integer LayerNorm kernel at row lengths 1..16384 with
+   constant rows (V = 0) and rows at the int16 extremes;
+5. holds the LSTM sequence kernel against its plain version: all 16 LSTM
    variants at small widths, then a full-width LN+projection layer from
    the port's own recipe, unmasked and masked, each from the reset state
    and continued from the carried (nonzero) state, at the decode shape
    (B = 4, T = 1) too;
-5. holds the GRU sequence kernel against its plain version in the same
+6. holds the GRU sequence kernel against its plain version in the same
    way: both GRU variants (noLN, LN) at small widths, then a full-width
    LN layer (d_in = H = 2048) at B = 4, T = 32 and T = 1;
-6. serves full-width ``lstm-rnnt`` (10 layers, d_rnn 2048, d_proj 640,
+7. holds the stepwise executor (per LSTM step: the GEMM for the input, the
+   recurrent product and the projection, one LayerNorm kernel per gate,
+   the cell kernel; per GRU step: the GEMM and the GRU kernel over one
+   timestep) against the hoisted kernels: all 16 LSTM variants at the
+   golden cases' widths (and the per-gate executor), a full-width
+   LN+projection+peephole layer, both GRU variants and the full-width GRU
+   layer; each call's launches must be exactly those of its steps;
+8. serves full-width ``lstm-rnnt`` (10 layers, d_rnn 2048, d_proj 640,
    vocab 4096) and then full-width ``gru-rnnt`` (10 layers, d_rnn 2048,
    vocab 4096) through the port's static serve path: seeded init,
    calibration, quantization, prefill of 4 x 32 tokens and 16 greedy
    tokens; the GEMM's and the cell's sequence kernel's launch counters
-   must rise by exactly 10 x (1 + 16), and the integer states of every
-   layer after the prefill and after each decode step, and every greedy
-   token, must equal a plain-version run of the stack fed the same tokens;
-   the LSTM serve is then repeated to show the spread of tokens/s;
-7. serves 12 requests through the continuous-batching engine on each
+   must rise by exactly 10 x (1 + 16), the others not at all, and the
+   integer states of every layer after the prefill and after each decode
+   step, and every greedy token, must equal a plain-version run of the
+   stack fed the same tokens; the LSTM serve is then repeated to show the
+   spread of tokens/s;
+9. runs a 4 x 32 prompt through all 10 layers of full-width ``lstm-rnnt``
+   with the stepwise executor (``quantize_input -> stepwise ->
+   dequantize_output``): the cell kernel must launch exactly 10 x 32
+   times, the LayerNorm kernel 4 x 10 x 32, the GEMM 3 x 10 x 32, the
+   sequence kernels never; every layer's ys and state must equal the
+   hoisted path, and layer 0 the per-gate executor; prompt tokens/s of
+   both executors (the comparison of ``benchmarks/prefill_throughput.py``)
+   and the device's busy share over two stepwise layers under the
+   profiler;
+10. serves 12 requests through the continuous-batching engine on each
    full-width model (4 slots, chunked prefill K = 4; gru-rnnt with
    arrivals staggered over 8 steps; gru-rnnt with speculation k = 4 under
    ``srf`` at oversubscription 2.0, so streams are preempted through the
    state pool; lstm-rnnt under ``fifo``): every stream's tokens must equal
-   the port's
-   ``decode_single`` on the card;
-8. times each kernel with CUDA events (L2 flushed, the card held busy while
+   the port's ``decode_single`` on the card;
+11. times each kernel with CUDA events (L2 flushed, the card held busy while
    the host enqueues the call, so the span is device time) beside its plain
    version, its bound and, for the GEMM, torch._int_mm;
-9. prints the card's name and power limit, the kernels' JSON line and, as
+12. prints the card's name and power limit, the kernels' JSON line and, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before each served path (the two
-static serves, the two engine runs) and read just after it; a kernel of
-the path that did not launch fails the run.  Each phase prints its
+static serves, the stepwise pass, the two engine runs) and read just
+after it; a kernel of the path that did not launch fails the run.  The
+kernels' JSON line counts each kernel's launches over the engine runs and
+the stepwise pass.  Each phase prints its
 seconds.
 
 Any mismatch, build failure or launch error raises, and the script exits
@@ -362,6 +385,218 @@ def check_fixedpoint(dev):
         f"{len(c['x'])} MBQMs equal the PyTorch port")
 
 
+def check_cell_kernels(dev):
+    """The standalone cell and LayerNorm kernels against their plain
+    versions on the cases of ``repro_torch.testing.kernel_cases`` (the
+    ``gpu`` tests use the same list): the cell at the shapes of
+    ``tests/test_kernels.py`` (CIFG on and off, cell formats Q0/Q2/Q4, the
+    peephole o gate with and without the in-fusion LN); the LayerNorm over
+    row lengths 1..16384 with constant rows (V = 0) and rows at the int16
+    extremes.  Returns ``(largest cell difference, largest LN difference)``
+    (0)."""
+    import torch
+    from repro_torch.kernels import int_layernorm as KL
+    from repro_torch.kernels import quant_lstm_cell as KC
+    from repro_torch.testing import kernel_cases as KCASES
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    err_c = n_cell = 0
+    for Bx, H in KCASES.CELL_SHAPES:
+        for label, kw in KCASES.cell_cases(Bx, H, gen):
+            got = KC.quant_lstm_cell(**kw)
+            want = KC.quant_lstm_cell_plain(**kw)
+            err_c = max(err_c,
+                        require_equal(f"quant_lstm_cell {label} m", got[0],
+                                      want[0]),
+                        require_equal(f"quant_lstm_cell {label} c", got[1],
+                                      want[1]))
+            n_cell += 1
+    err_l = n_ln = 0
+    for n in KCASES.LN_LENGTHS:
+        label, kw = KCASES.layernorm_case(n, gen)
+        err_l = max(err_l, require_equal(f"int_layernorm {label}",
+                                         KL.int_layernorm(**kw),
+                                         KL.int_layernorm_plain(**kw)))
+        n_ln += 1
+    torch.cuda.synchronize()
+    log(f"[check] quant_lstm_cell: {n_cell} cases (3 shapes x CIFG x m_c "
+        "0/2/4, and the peephole o gate with and without in-fusion LN) "
+        "bit-exact vs plain")
+    log(f"[check] int_layernorm: n in 1..16384 ({n_ln} row lengths, "
+        "constant and int16-extreme rows) bit-exact vs plain")
+    return err_c, err_l
+
+
+def step_kernel_counts(spec, steps):
+    """Launches one stepwise layer of ``steps`` timesteps makes: per LSTM
+    step the input, recurrent (and projection) GEMMs, one LayerNorm per
+    gate normalised outside the cell, one cell; per GRU step the input
+    GEMM and the GRU kernel over one timestep."""
+    counts = {"int8_matmul": 0, "quant_lstm_scan": 0, "quant_gru_scan": 0,
+              "int_layernorm": 0, "quant_lstm_cell": 0}
+    if spec.cell == "gru":
+        counts.update(int8_matmul=steps, quant_gru_scan=steps)
+        return counts
+    n_ln = 0
+    if spec.use_layernorm:
+        n_ln = len(spec.variant.gates) - int(spec.use_peephole)
+    counts.update(int8_matmul=steps * (2 + int(spec.use_projection)),
+                  int_layernorm=steps * n_ln, quant_lstm_cell=steps)
+    return counts
+
+
+def compare_stepwise(what, arrays, spec, xs_q, state0=None, per_gate=False):
+    """The stepwise executor (its launches counted) against the hoisted one
+    (kernels 1 and 4) on one input, and the per-gate executor too where
+    asked.  Returns the stepwise final state."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import quant_lstm as QL
+
+    if state0 is None:
+        state0 = QL.initial_recurrent_state(spec, xs_q.shape[0], xs_q.device)
+    hoisted = ops.quant_recurrent_seq(arrays, spec, xs_q, state0)
+    before = serve.launch_counts()
+    got = ops.quant_recurrent_seq_stepwise(arrays, spec, xs_q, state0)
+    counts = {k: v - before[k] for k, v in serve.launch_counts().items()}
+    if counts != step_kernel_counts(spec, xs_q.shape[1]):
+        raise AssertionError(f"{what}: stepwise launches {counts}, expected "
+                             f"{step_kernel_counts(spec, xs_q.shape[1])}")
+    compare_scan(f"{what} stepwise", got, hoisted)
+    if per_gate:
+        compare_scan(f"{what} per-gate", QL.quant_lstm_layer_ref(
+            arrays, spec, xs_q, *state0), hoisted)
+    torch.cuda.synchronize()
+    return got[1]
+
+
+def check_stepwise_layers(dev, gru_layer):
+    """Every LSTM variant at the golden cases' widths (B=2, T=5, d_in=8,
+    H=12, d_p=6) and a full-width LN+projection+peephole layer, both GRU
+    variants and the full-width GRU layer: stepwise equals hoisted, from
+    the reset state and from the carried one."""
+    from repro_torch.models import gru as G
+    from repro_torch.models import lstm as L
+    from repro_torch.models import quant_lstm as QL
+
+    for i, variant in enumerate(L.ALL_VARIANTS):
+        arrays, spec, xs = quantized_layer(variant, 8, 12, 6, dev,
+                                           seed=300 + i)
+        xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)[:2, :5].contiguous()
+        carried = compare_stepwise(variant.name, arrays, spec, xs_q,
+                                   per_gate=True)
+        compare_stepwise(f"{variant.name} carried", arrays, spec,
+                         xs_q[:, :2].contiguous(), carried, per_gate=True)
+    variant = L.LSTMVariant(use_layernorm=True, use_projection=True,
+                            use_peephole=True)
+    arrays, spec, xs = quantized_layer(variant, 640, 2048, 640, dev, seed=13,
+                                       calib_T=T)
+    xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+    compare_stepwise("full-width LN+Proj+PH layer", arrays, spec, xs_q)
+    log("[check] stepwise LSTM: 16 variants (B=2 T=5 H=12, from the reset "
+        "and the carried state, per-gate too) and a full-width "
+        "LN+projection+peephole layer (H=2048, B=4, T=32, in-fusion o-gate "
+        "LN) equal the hoisted kernels")
+    for i, variant in enumerate(G.ALL_VARIANTS):
+        arrays, spec, xs = quantized_gru_layer(variant.use_layernorm, 8, 12,
+                                               dev, seed=400 + i)
+        xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)[:2, :5].contiguous()
+        carried = compare_stepwise(f"GRU {variant.name}", arrays, spec, xs_q)
+        compare_stepwise(f"GRU {variant.name} carried", arrays, spec,
+                         xs_q[:, :2].contiguous(), carried)
+    arrays, spec, xs_q = gru_layer
+    compare_stepwise("full-width GRU layer", arrays, spec, xs_q)
+    log("[check] stepwise GRU: both variants (B=2 T=5 H=12, from the reset "
+        "and the carried state) and the full-width LN layer (B=4, T=32) "
+        "equal the hoisted kernel")
+
+
+def stack_pass(qlayers, x, executor):
+    """``quantize_input -> executor -> dequantize_output`` layer by layer
+    from the reset state; returns each layer's ``(xs_q, ys, state)``."""
+    from repro_torch.models import quant_lstm as QL
+
+    layers = []
+    for arrays, spec in qlayers:
+        xs_q = QL.quantize_input(x, spec.s_x, spec.zp_x)
+        state0 = QL.initial_recurrent_state(spec, xs_q.shape[0], xs_q.device)
+        ys, state = executor(arrays, spec, xs_q, state0)
+        layers.append((xs_q, ys, state))
+        x = QL.dequantize_output(ys, spec.s_h, spec.zp_h_out)
+    return layers
+
+
+def timed_pass(qlayers, x, executor):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    layers = stack_pass(qlayers, x, executor)
+    torch.cuda.synchronize()
+    return layers, time.perf_counter() - t0
+
+
+def stepwise_full_width(dev, model, repeats=3):
+    """The stepwise executor over all layers of full-width ``lstm-rnnt`` on
+    a B x T prompt: its launches counted, every layer equal to the hoisted
+    path, layer 0 to the per-gate executor; prompt tokens/s of both."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.layers import embedding as emb
+    from repro_torch.models import quant_lstm as QL
+
+    params, qlayers, cfg = model
+    with torch.no_grad():
+        x = emb.embed_tokens(params, serve.random_prompt(
+            cfg, B, T, dev, seed=4)).float()
+        serve.reset_launch_counts()
+        step, step_s = timed_pass(qlayers, x, ops.quant_recurrent_seq_stepwise)
+        counts = serve.launch_counts()
+        expect = {k: sum(step_kernel_counts(spec, T)[k] for _, spec in qlayers)
+                  for k in counts}
+        path_launches(f"stepwise {cfg.name}", counts, expect)
+        hoisted, hoisted_s = timed_pass(qlayers, x, ops.quant_recurrent_seq)
+        for i, ((xq, ys, st), (hxq, hys, hst)) in enumerate(zip(step,
+                                                                hoisted)):
+            require_equal(f"stepwise layer {i} input", xq, hxq)
+            compare_scan(f"stepwise layer {i}", (ys, st), (hys, hst))
+        arrays, spec = qlayers[0]
+        compare_scan("per-gate layer 0", QL.quant_lstm_layer_ref(
+            arrays, spec, step[0][0]), (step[0][1], step[0][2]))
+        torch.cuda.synchronize()
+        log(f"[stepwise] {cfg.name}: all {len(qlayers)} layers' ys and "
+            f"states equal the hoisted path (B={B}, T={T}); layer 0 equals "
+            "the per-gate executor")
+        times = {"stepwise": [step_s], "hoisted": [hoisted_s]}
+        for _ in range(repeats):
+            for name, executor in (("stepwise",
+                                    ops.quant_recurrent_seq_stepwise),
+                                   ("hoisted", ops.quant_recurrent_seq)):
+                layers, secs = timed_pass(qlayers, x, executor)
+                if not torch.equal(layers[-1][1], step[-1][1]):
+                    raise AssertionError(f"a repeated {name} pass differs")
+                times[name].append(secs)
+        # profiled over the first two layers (both input widths): the
+        # profiler's bookkeeping of a whole pass costs a minute
+        busy_ms, prof_wall_s = device_busy_ms(lambda: timed_pass(
+            qlayers[:2], x, ops.quant_recurrent_seq_stepwise)[1])
+    tok_s = {name: sorted(B * T / t for t in v) for name, v in times.items()}
+    for name, vals in tok_s.items():
+        log(f"[stepwise] {cfg.name} {name} prompt tokens/s over "
+            f"{len(vals)} passes: min {vals[0]:.1f} median "
+            f"{vals[len(vals) // 2]:.1f} max {vals[-1]:.1f} (host clock)")
+    share = (busy_ms / 1e3 / prof_wall_s) if busy_ms else None
+    log(f"[stepwise] {cfg.name} profiled stepwise layers 0-1: device busy "
+        f"{busy_ms} ms of {prof_wall_s * 1e3:.1f} ms wall (busy share "
+        f"{share})")
+    return {"arch": cfg.name, "launches": counts, "prompt_tok_s": tok_s,
+            "first_pass_s": {"stepwise": step_s, "hoisted": hoisted_s},
+            "profiled": {"device_busy_ms": busy_ms, "wall_s": prof_wall_s,
+                         "busy_share": share}}
+
+
 def plain_forward(params, qlayers, tokens, states):
     """``lstm_lm.quant_forward`` with every kernel swapped for its plain
     version (the reference for the served run).  Returns the last
@@ -548,7 +783,7 @@ def engine_full_width(model, policy, oversubscribe, speculate):
         log(f"[{what}] {name} over {ENGINE_REPEATS} repeats: min "
             f"{vals[0]:.4g} median {vals[ENGINE_REPEATS // 2]:.4g} max "
             f"{vals[-1]:.4g}")
-    busy_ms, prof_wall_s = device_busy_ms(run)
+    busy_ms, prof_wall_s = device_busy_ms(lambda: run()[1].wall_s)
     share = (busy_ms / 1e3 / prof_wall_s) if busy_ms else None
     log(f"[{what}] profiled run: device busy {busy_ms} ms of "
         f"{prof_wall_s * 1e3:.1f} ms wall (busy share {share})")
@@ -569,19 +804,19 @@ def engine_full_width(model, policy, oversubscribe, speculate):
 
 
 def device_busy_ms(run):
-    """``(device ms, wall s)`` of one engine run under ``torch.profiler``:
-    the sum of the kernels' device time (launches do not overlap on one
-    stream), beside the run's own host-clock wall.  Device ms is None
-    where the profiler records no device time."""
+    """``(device ms, wall s)`` of one run under ``torch.profiler``: the sum
+    of the kernels' device time (launches do not overlap on one stream),
+    beside the wall seconds ``run`` returns (its own host clock).  Device
+    ms is None where the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, stats = run()
+        wall_s = run()
     busy_us = sum(e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return (busy_us / 1e3 if busy_us > 0 else None), stats.wall_s
+    return (busy_us / 1e3 if busy_us > 0 else None), wall_s
 
 
 def scan_bytes_ops(acc, spec):
@@ -659,7 +894,71 @@ def time_kernels(dev, lstm_layer, gru_layer):
             f"ms, _int_mm {row['library_ms']}, bound {row['bound_ms']:.4f} "
             f"ms ({row['bound_by']})")
     return (gemm, time_scan(dev, lstm_layer, "quant_lstm_scan", flush),
-            time_scan(dev, gru_layer, "quant_gru_scan", flush))
+            time_scan(dev, gru_layer, "quant_gru_scan", flush),
+            time_cell_kernels(dev, lstm_layer[1], flush))
+
+
+def time_cell_kernels(dev, spec, flush):
+    """Device ms of the cell kernel (the ``lstm-rnnt`` form, and the
+    peephole + in-fusion LN form) and the LayerNorm kernel at the stepwise
+    path's B4 H2048, beside their plain versions and bounds (bytes: there
+    are no int8 products)."""
+    import torch
+    from repro_torch.core import fixedpoint as fp
+    from repro_torch.kernels import int_layernorm as KL
+    from repro_torch.kernels import quant_lstm_cell as KC
+
+    H = spec.cfg_d_hidden
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def ints(shape, lo, hi, dtype=torch.int16):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    i16, f16, z16, o16, c = (ints((B, H), -32768, 32768) for _ in range(5))
+    o32 = ints((B, H), -(2**20), 2**20, torch.int32)
+    p_o, lw = ints((H,), -32767, 32768), ints((H,), 100, 32767)
+    lb = ints((H,), -100000, 100000, torch.int32)
+    base = dict(cell_int_bits=spec.cell_int_bits, cifg=False,
+                eff_m=spec.eff_m, zp_m=spec.zp_m)
+    forms = (("lstm-rnnt form", dict(o_in=o16, **base), 5 * 2),
+             ("peephole + in-fusion LN", dict(
+                 o_in=o32, p_o=p_o, eff_c_o=fp.quantize_multiplier(0.37),
+                 lw_o=lw, lb_o=lb, ln_out_o=spec.gate_spec("o").ln_out,
+                 **base), 4 * 2 + 4))
+    cell_rows = []
+    for name, kw, in_bytes in forms:
+        row = {"B": B, "H": H, "form": name}
+        row["ms"], row["host_ms"] = cold_ms(
+            lambda: KC.quant_lstm_cell(i16, f16, z16, c_q=c, **kw), 50, flush)
+        row["plain_ms"], _ = cold_ms(
+            lambda: KC.quant_lstm_cell_plain(i16, f16, z16, c_q=c, **kw), 10,
+            flush)
+        row["library_ms"] = None
+        vec_bytes = 8 * H if "p_o" in kw else 0  # p_o, L (int16), b (int32)
+        row["bound_ms"], row["bound_by"] = bound(
+            B * H * (in_bytes + 3) + vec_bytes, 0)
+        cell_rows.append(row)
+        log(f"[time] quant_lstm_cell B={B} H={H} {name}: {row['ms']:.4f} ms "
+            f"(host enqueue {row['host_ms']:.4f} ms), plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']})")
+    q = ints((B, H), -32768, 32768)
+    out = spec.gate_spec("f").ln_out
+    row = {"B": B, "n": H}
+    row["ms"], row["host_ms"] = cold_ms(
+        lambda: KL.int_layernorm(q, lw, lb, out_m0=out[0], out_shift=out[1]),
+        50, flush)
+    row["plain_ms"], _ = cold_ms(
+        lambda: KL.int_layernorm_plain(q, lw, lb, out_m0=out[0],
+                                       out_shift=out[1]), 10, flush)
+    row["library_ms"] = None
+    row["bound_ms"], row["bound_by"] = bound(B * H * 4 + H * 6, 0)
+    log(f"[time] int_layernorm B={B} n={H}: {row['ms']:.4f} ms (host enqueue "
+        f"{row['host_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    torch.cuda.synchronize()
+    return cell_rows, [row]
 
 
 class Phases:
@@ -693,7 +992,9 @@ def main() -> int:
         return 2
     from repro_torch.kernels import build
     from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import int_layernorm as KL
     from repro_torch.kernels import quant_gru_scan as KG
+    from repro_torch.kernels import quant_lstm_cell as KC
     from repro_torch.kernels import quant_lstm_scan as K2
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full
@@ -714,12 +1015,18 @@ def main() -> int:
     check_fixedpoint(dev)
     err1 = check_gemm(dev)
     phases.done("check fixedpoint + int8_matmul")
+    err_cell, err_ln = check_cell_kernels(dev)
+    phases.done("check quant_lstm_cell + int_layernorm")
     err2, lstm_layer = check_scan(dev)
     phases.done("check quant_lstm_scan")
     err3, gru_layer = check_gru_scan(dev)
     phases.done("check quant_gru_scan")
+    check_stepwise_layers(dev, gru_layer)
+    phases.done("check stepwise layers")
     lstm_serve, lstm_model = serve_full_width(dev, "lstm-rnnt", REPEATS)
     phases.done("serve lstm-rnnt")
+    stepwise = stepwise_full_width(dev, lstm_model)
+    phases.done("stepwise lstm-rnnt")
     gru_serve, gru_model = serve_full_width(dev, "gru-rnnt", 0)
     phases.done("serve gru-rnnt")
     models = {"gru-rnnt": gru_model, "lstm-rnnt": lstm_model}
@@ -728,13 +1035,14 @@ def main() -> int:
         engines.append(engine_full_width(models[arch], policy, ratio,
                                          speculate))
         phases.done(f"engine {arch}")
-    gemm, scan, gru_scan = time_kernels(dev, lstm_layer, gru_layer)
+    gemm, scan, gru_scan, (cell, ln) = time_kernels(dev, lstm_layer,
+                                                    gru_layer)
     phases.done("timing")
 
-    # this slice's main path is the engine on both models: its launches
+    # the main paths of the slices so far: the engine on both models and
+    # the stepwise pass of lstm-rnnt; each kernel's launches over them
     launches = {name: sum(e["launches"][name] for e in engines)
-                for name in ("int8_matmul", "quant_lstm_scan",
-                             "quant_gru_scan")}
+                + stepwise["launches"][name] for name in stepwise["launches"]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -749,11 +1057,18 @@ def main() -> int:
         kernel_entry("quant_gru_scan", KG, launches["quant_gru_scan"], err3,
                      gru_scan[0], "B=4 T=32 H=2048 LN (prefill layer)",
                      gru_scan),
+        kernel_entry("int_layernorm", KL, launches["int_layernorm"], err_ln,
+                     ln[0], "B=4 n=2048 (one gate of a stepwise lstm-rnnt "
+                     "step)", ln),
+        kernel_entry("quant_lstm_cell", KC, launches["quant_lstm_cell"],
+                     err_cell, cell[0], "B=4 H=2048, the lstm-rnnt form (a "
+                     "stepwise step)", cell),
     ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"gpu": smi, "build_s": secs, "kernels": kernels,
                    "serve": [lstm_serve, gru_serve], "engine": engines,
+                   "stepwise": stepwise,
                    "batch": B, "prompt_len": T, "gen": GEN,
                    "phase_s": phases.seconds}, f, indent=1)
     log(smi)

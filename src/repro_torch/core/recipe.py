@@ -86,6 +86,11 @@ class QLSTMSpec:
     def gate_spec(self, g: str) -> GateSpec:
         return dict(self.gates)[g]
 
+    def gate_block(self, g: str) -> slice:
+        """Column block of gate ``g`` inside the packed [i|f|z|o] arrays."""
+        k = self.gate_names.index(g)
+        return slice(k * self.cfg_d_hidden, (k + 1) * self.cfg_d_hidden)
+
 
 @dataclasses.dataclass(frozen=True)
 class QGRUSpec:

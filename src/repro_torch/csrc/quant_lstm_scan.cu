@@ -9,6 +9,8 @@
 //                  [sat+ mbqm(P_g * c, eff_c)])  -> integer LayerNorm
 //   c = sat16(rdbpot(i*z, 30 - n_c) sat+ rdbpot(f*c, 15)); o finished on c
 //   m = sat8(mbqm(o * tanh(c), eff_m) + zp_m); h = projection(m) or m
+// The cell (c, the peephole o gate, m) is the device code of lstm_cell.cuh,
+// which the standalone cell kernel (quant_lstm_cell.cu) runs too.
 //   ys[b, t] = h
 // All 16 LSTM variants run through runtime flags (use_layernorm,
 // use_projection, use_peephole, use_cifg; G = 3 or 4 gate blocks).  With
@@ -31,6 +33,7 @@
 #include <stdint.h>
 
 #include "fixedpoint.cuh"
+#include "lstm_cell.cuh"
 #include "recurrent_scan.cuh"
 
 namespace {
@@ -81,7 +84,6 @@ __global__ void __launch_bounds__(kThreads, 1) quant_lstm_scan_kernel(ScanParams
   for (int j = tid; j < H; j += kThreads) c[j] = p.c0[(size_t)b * H + j];
   __syncthreads();
 
-  const int n_c = 15 - p.cell_int_bits;
   const int vlen = p.valid_len ? p.valid_len[b] : p.T;
   // with a peephole the o gate is finished after c_new (and LN'd there)
   const int slot_o_late = p.use_ph ? p.slot_o : -1;
@@ -137,23 +139,14 @@ __global__ void __launch_bounds__(kThreads, 1) quant_lstm_scan_kernel(ScanParams
     // 3. cell update (and the peephole o gate, which reads c_new)
     long long so[4] = {0, 0, 0, 0}, qo[4] = {0, 0, 0, 0};
     for (int j = tid; j < H; j += kThreads) {
-      const int32_t f_act = fp::sigmoid_q15(gates[p.slot_f * H + j], 3);
-      const int32_t z_act = fp::tanh_q15(gates[p.slot_z * H + j], 3);
-      int32_t i_act;
-      if (p.cifg) {
-        i_act = 32768 - f_act;
-        if (i_act > 32767) i_act = 32767;
-      } else {
-        i_act = fp::sigmoid_q15(gates[p.slot_i * H + j], 3);
-      }
-      const int16_t c_new = fp::sat16(fp::sat_add(
-          fp::rdbpot(i_act * z_act, 30 - n_c), fp::rdbpot(f_act * (int32_t)c[j], 15)));
+      const int16_t c_new = cell::update_c(
+          p.cifg ? 0 : gates[p.slot_i * H + j], gates[p.slot_f * H + j],
+          gates[p.slot_z * H + j], c[j], p.cifg, p.cell_int_bits);
       c[j] = c_new;
       if (slot_o_late >= 0) {
         const int k = slot_o_late;
-        const int32_t o16 = fp::sat16(fp::sat_add(
-            gates[k * H + j],
-            fp::mbqm((int32_t)p.P[k][j] * c_new, p.eff_c[k][0], p.eff_c[k][1])));
+        const int32_t o16 = cell::o_peephole(gates[k * H + j], p.P[k][j], c_new,
+                                             p.eff_c[k][0], p.eff_c[k][1]);
         gates[k * H + j] = o16;
         so[0] += o16;
         qo[0] += (long long)o16 * o16;
@@ -172,10 +165,8 @@ __global__ void __launch_bounds__(kThreads, 1) quant_lstm_scan_kernel(ScanParams
     // 4. hidden output m = sat8(mbqm(o * tanh(c), eff_m) + zp_m)
     int8_t* m_dst = p.use_proj ? m : h;  // no projection: m IS the new h
     for (int j = tid; j < H; j += kThreads) {
-      const int32_t o_act = fp::sigmoid_q15(gates[p.slot_o * H + j], 3);
-      const int32_t g_c = fp::tanh_q15(c[j], p.cell_int_bits);
-      m_dst[j] = fp::sat8(fp::wrap32(
-          (int64_t)fp::mbqm(o_act * g_c, p.eff_m[0], p.eff_m[1]) + p.zp_m));
+      m_dst[j] = cell::hidden_out(gates[p.slot_o * H + j], c[j], p.cell_int_bits,
+                                  p.eff_m[0], p.eff_m[1], p.zp_m);
     }
     __syncthreads();
 

@@ -62,14 +62,17 @@ def quant_lstm_cell(i16, f16, z16, o_in, c_q, *, cell_int_bits: int,
     return m_q, c_new
 
 
-def lstm_gate_preacts(vals, spec, acc_x, acc_h, c_q):
+def lstm_gate_preacts(vals, spec, acc_x, acc_h, c_q, layernorm=None):
     """Per-step gate pre-activations from the packed int32 accumulators.
 
     Rescales run in the reference order (mbqm(x) sat+ mbqm(h) [sat+
-    mbqm(P (.) c)] -> sat16 -> LN).  Returns ``(i16, f16, z16, o_in,
-    o_kw)``; with a peephole ``o_in`` is the int32 pre-peephole o
-    accumulator and ``o_kw`` the finisher's params.
+    mbqm(P (.) c)] -> sat16 -> LN).  ``layernorm(q, w, b, out_m0=,
+    out_shift=)`` applies each gate's LN (``integer_layernorm`` when None;
+    the stepwise executor passes the LayerNorm kernel's wrapper).  Returns
+    ``(i16, f16, z16, o_in, o_kw)``; with a peephole ``o_in`` is the int32
+    pre-peephole o accumulator and ``o_kw`` the finisher's params.
     """
+    layernorm = layernorm or iops.integer_layernorm
     H = spec.cfg_d_hidden
     g16 = {}
     o_kw = {}
@@ -94,8 +97,8 @@ def lstm_gate_preacts(vals, spec, acc_x, acc_h, c_q):
                 gate, fp.multiply_by_quantized_multiplier(acc_c, *gs.eff_c))
         gate16 = fp.saturate_i16(gate)
         if spec.use_layernorm:
-            gate16 = iops.integer_layernorm(
-                gate16, vals["L"][g], vals["Lb"][g], *gs.ln_out)
+            gate16 = layernorm(gate16, vals["L"][g], vals["Lb"][g],
+                               out_m0=gs.ln_out[0], out_shift=gs.ln_out[1])
         g16[g] = gate16
     if o_in is None:
         o_in = g16["o"]

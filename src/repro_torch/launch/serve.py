@@ -27,12 +27,14 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..configs.registry import get_config
-from ..kernels import int8_matmul, quant_gru_scan, quant_lstm_scan
+from ..kernels import (int8_matmul, int_layernorm, quant_gru_scan,
+                       quant_lstm_cell, quant_lstm_scan)
 from ..models import lstm_lm
 from . import engine as E
 
 KERNELS = {"int8_matmul": int8_matmul, "quant_lstm_scan": quant_lstm_scan,
-           "quant_gru_scan": quant_gru_scan}
+           "quant_gru_scan": quant_gru_scan, "int_layernorm": int_layernorm,
+           "quant_lstm_cell": quant_lstm_cell}
 
 
 def launch_counts() -> Dict[str, int]:

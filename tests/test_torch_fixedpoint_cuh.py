@@ -8,7 +8,9 @@ every int16 input for integer_bits 0..15, the LayerNorm rsqrt multiplier on
 edge and random variances, MBQM on edge and random triples.  Every result
 must EQUAL ``repro_torch.core.fixedpoint`` (held equal to the JAX reference
 by ``test_torch_fixedpoint.py``).  ``chip_smoke.py`` runs the same check
-with the header compiled for the card.
+with the header compiled for the card.  The cell header ``lstm_cell.cuh``
+(the arithmetic of the cell kernel and of the LSTM sequence kernel) is
+compiled the same way and must equal the port's plain cell.
 """
 import shutil
 import subprocess
@@ -102,3 +104,88 @@ def test_header_equals_torch_port(host_results, key):
     got, want = host_results
     assert got[key].dtype == want[key].dtype
     np.testing.assert_array_equal(got[key], want[key])
+
+
+CELL_PROGRAM = r"""
+#include <cstdint>
+#include <cstdio>
+#include <vector>
+
+#include "lstm_cell.cuh"
+
+int main() {
+  int32_t a[10];  // n, cifg, cell_int_bits, peephole, eff_c_o, eff_m, zp_m
+  if (fread(a, sizeof(int32_t), 10, stdin) != 10) return 1;
+  const int n = a[0];
+  std::vector<int16_t> i(n), f(n), z(n), c(n), p(n);
+  std::vector<int32_t> o(n);
+  for (auto* v : {&i, &f, &z, &c, &p})
+    if (fread(v->data(), sizeof(int16_t), n, stdin) != (size_t)n) return 1;
+  if (fread(o.data(), sizeof(int32_t), n, stdin) != (size_t)n) return 1;
+  std::vector<int16_t> c_new(n);
+  std::vector<int8_t> m(n);
+  for (int k = 0; k < n; ++k) {
+    c_new[k] = cell::update_c(i[k], f[k], z[k], c[k], a[1], a[2]);
+    const int32_t o16 = a[3] ? cell::o_peephole(o[k], p[k], c_new[k], a[4], a[5])
+                             : o[k];
+    m[k] = cell::hidden_out(o16, c_new[k], a[2], a[6], a[7], a[8]);
+  }
+  fwrite(c_new.data(), sizeof(int16_t), n, stdout);
+  fwrite(m.data(), sizeof(int8_t), n, stdout);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def cell_exe(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the header for the host")
+    work = tmp_path_factory.mktemp("lstm_cell_cuh")
+    (work / "cell.cpp").write_text(CELL_PROGRAM)
+    exe = work / "cell"
+    subprocess.run([gxx, "-std=c++17", "-O2", f"-I{CSRC}", "-o", str(exe),
+                    str(work / "cell.cpp")], check=True, timeout=120)
+    return exe
+
+
+@pytest.mark.parametrize("peephole", [False, True])
+@pytest.mark.parametrize("cifg", [False, True])
+@pytest.mark.parametrize("m_c", [0, 2, 4])
+def test_cell_header_equals_plain_cell(cell_exe, m_c, cifg, peephole):
+    """``lstm_cell.cuh`` (the cell of both CUDA cell paths) on the host
+    equals the port's plain cell, o-gate peephole contract included."""
+    from repro_torch.core import fixedpoint as tfp
+    from repro_torch.kernels import ref as tref
+
+    rng = np.random.default_rng(m_c + 3 * cifg + 7 * peephole)
+    B, H = 4, 512
+    i, f, z = (rng.integers(-32768, 32768, (B, H)).astype(np.int16)
+               for _ in range(3))
+    c = rng.integers(-32768, 32768, (B, H)).astype(np.int16)
+    p = np.broadcast_to(rng.integers(-32767, 32768, H).astype(np.int16),
+                        (B, H))
+    if peephole:
+        o = rng.integers(-(2**24), 2**24, (B, H)).astype(np.int32)
+    else:
+        o = rng.integers(-32768, 32768, (B, H)).astype(np.int32)
+    eff_c_o = tfp.quantize_multiplier(0.37)
+    eff_m = tfp.quantize_multiplier(2.0**-30 / 0.005)
+    head = np.array([B * H, cifg, m_c, peephole, *eff_c_o, *eff_m, -4, 0],
+                    np.int32)
+    blob = b"".join(a.tobytes() for a in (head, i, f, z, c,
+                                          np.ascontiguousarray(p), o))
+    raw = subprocess.run([str(cell_exe)], input=blob, capture_output=True,
+                         check=True, timeout=120).stdout
+    got_c = np.frombuffer(raw, np.int16, B * H).reshape(B, H)
+    got_m = np.frombuffer(raw, np.int8, B * H, 2 * B * H).reshape(B, H)
+    t = [torch.from_numpy(a) for a in (i, f, z)]
+    kw = dict(p_o=torch.from_numpy(p[0].copy()), eff_c_o=eff_c_o) \
+        if peephole else {}
+    o_in = torch.from_numpy(o if peephole else o.astype(np.int16))
+    m, c_new = tref.quant_lstm_cell(*t, o_in, torch.from_numpy(c),
+                                    cell_int_bits=m_c, cifg=cifg, eff_m=eff_m,
+                                    zp_m=-4, **kw)
+    np.testing.assert_array_equal(got_c, c_new.numpy())
+    np.testing.assert_array_equal(got_m, m.numpy())

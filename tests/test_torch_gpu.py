@@ -171,7 +171,8 @@ def test_serve_smoke_launches_each_kernel_per_layer_and_step(cuda):
                       3)
     expect = cfg.n_layers * (1 + 3)
     assert res.launches == {"int8_matmul": expect, "quant_lstm_scan": expect,
-                            "quant_gru_scan": 0}
+                            "quant_gru_scan": 0, "int_layernorm": 0,
+                            "quant_lstm_cell": 0}
     assert tuple(res.tokens.shape) == (2, 3)
 
 
@@ -196,3 +197,112 @@ def test_engine_smoke_gru_launches_and_matches_decode_single(cuda):
     for r in requests:
         assert results[r.rid].tokens == E.decode_single(
             params, qlayers, cfg, r.prompt, r.max_new_tokens)
+
+
+@pytest.mark.parametrize("B,H", [(8, 256), (16, 1024), (4, 2048)])
+def test_cell_kernel_matches_plain(cuda, B, H):
+    from repro_torch.kernels import quant_lstm_cell as K3
+    from repro_torch.testing import kernel_cases
+
+    gen = torch.Generator(device=cuda).manual_seed(B + H)
+    for label, kw in kernel_cases.cell_cases(B, H, gen):
+        before = K3.launches
+        got = K3.quant_lstm_cell(**kw)
+        assert K3.launches == before + 1
+        want = K3.quant_lstm_cell_plain(**kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            label
+
+
+def test_layernorm_kernel_matches_plain(cuda):
+    from repro_torch.kernels import int_layernorm as K2
+    from repro_torch.testing import kernel_cases
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for n in kernel_cases.LN_LENGTHS:
+        label, kw = kernel_cases.layernorm_case(n, gen)
+        before = K2.launches
+        got = K2.int_layernorm(**kw)
+        assert K2.launches == before + 1
+        assert torch.equal(got, K2.int_layernorm_plain(**kw)), label
+
+
+def _refuse_plain_versions(monkeypatch):
+    """Make every plain version raise: a CUDA path must not reach one."""
+    from repro_torch.core import integer_ops as iops
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import int_layernorm as KL
+    from repro_torch.kernels import quant_lstm_cell as KC
+    from repro_torch.kernels import quant_lstm_scan as K2
+    from repro_torch.kernels import ref
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((K2, "quant_recurrent_seq_scan_plain"),
+                      (K1, "int8_matmul_plain"), (KL, "int_layernorm_plain"),
+                      (KC, "quant_lstm_cell_plain"), (ref, "recurrent_step"),
+                      (ref, "quant_lstm_cell"), (ref, "quant_gru_recurrent"),
+                      (ref, "lstm_project"), (iops, "integer_layernorm")):
+        monkeypatch.setattr(mod, name, refuse)
+
+
+@pytest.mark.parametrize("vi", [10, 12, 15])
+def test_cuda_stepwise_lstm_layer_never_reaches_plain(cuda, monkeypatch, vi):
+    """A stepwise LSTM layer on CUDA runs the GEMM, LayerNorm and cell
+    kernels only, and equals the hoisted sequence kernel."""
+    from repro_torch.core import recipe as R
+    from repro_torch.core.calibrate import Stats, TapCollector
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import int_layernorm as KL
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_lstm_cell as KC
+    from repro_torch.models import lstm as L
+    from repro_torch.models import quant_lstm as QL
+
+    variant = L.ALL_VARIANTS[vi]
+    assert variant.use_layernorm
+    cfg = L.LSTMConfig(9, 13, 6 if variant.use_projection else 0, variant)
+    gen = torch.Generator(device=cuda).manual_seed(vi)
+    params = L.init_lstm_params(gen, cfg, cuda)
+    xs = 0.8 * torch.randn((3, 5, 9), generator=gen, device=cuda)
+    col = TapCollector()
+    L.lstm_layer(params, cfg, xs, collector=col)
+    stats = Stats()
+    stats.merge(col.snapshot())
+    arrays, spec = R.quantize_lstm_layer(params, cfg, stats)
+    xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+    hoisted = QL.quant_recurrent_layer(arrays, spec, xs_q)
+    _refuse_plain_versions(monkeypatch)
+    before = (K1.launches, KL.launches, KC.launches)
+    state0 = QL.initial_recurrent_state(spec, 3, cuda)
+    ys, state = ops.quant_recurrent_seq_stepwise(arrays, spec, xs_q, state0)
+    torch.cuda.synchronize()
+    n_ln = len(variant.gates) - (1 if variant.use_peephole else 0)
+    gemms = 2 + int(variant.use_projection)
+    assert (K1.launches, KL.launches, KC.launches) == (
+        before[0] + 5 * gemms, before[1] + 5 * n_ln, before[2] + 5)
+    assert torch.equal(ys, hoisted[0])
+    for leaf, want in zip(state, hoisted[1]):
+        assert torch.equal(leaf, want)
+
+
+def test_cuda_stepwise_gru_layer_never_reaches_plain(cuda, monkeypatch):
+    """A stepwise GRU layer on CUDA runs the input GEMM and the GRU
+    sequence kernel over one timestep per step, and equals the hoisted
+    kernel."""
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_gru_scan as KG
+    from repro_torch.models import quant_lstm as QL
+
+    (arrays, spec), xs = _gru_layer(cuda, True, seed=6)
+    xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+    hoisted = QL.quant_recurrent_layer(arrays, spec, xs_q)
+    _refuse_plain_versions(monkeypatch)
+    before = (K1.launches, KG.launches)
+    ys, (h,) = ops.quant_recurrent_seq_stepwise(
+        arrays, spec, xs_q, QL.initial_recurrent_state(spec, 3, cuda))
+    torch.cuda.synchronize()
+    assert (K1.launches, KG.launches) == (before[0] + 5, before[1] + 5)
+    assert torch.equal(ys, hoisted[0]) and torch.equal(h, hoisted[1][0])
