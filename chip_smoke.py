@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. builds the five CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+1. builds the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    each, in parallel, beside the header check of step 2) and prints the
    build seconds and ptxas resource lines;
 2. holds the kernels' fixed-point header, compiled for the card, against
@@ -32,6 +32,14 @@
    golden cases' widths (and the per-gate executor), a full-width
    LN+projection+peephole layer, both GRU variants and the full-width GRU
    layer; each call's launches must be exactly those of its steps;
+   then holds the flash-attention kernel against its plain version at its
+   own 64 x 64 tiles: (B, H, KVH, S, D) in {(2, 4, 4, 256, 64), (1, 32, 8,
+   1100, 128), (2, 32, 8, 4096, 128)} x float32/bf16 x (its own scale, or q
+   pre-scaled in its dtype as the model's layer does) x (causal,
+   non-causal, causal with window 64), and per shape a bf16 case with
+   unaligned rows (the kernel's FMA form; aligned bf16 runs on the tensor
+   cores); float32 within 2e-5 + 2e-5 |ref|, bf16 within 2 ulps of the
+   row's largest |ref|;
 8. serves full-width ``lstm-rnnt`` (10 layers, d_rnn 2048, d_proj 640,
    vocab 4096) and then full-width ``gru-rnnt`` (10 layers, d_rnn 2048,
    vocab 4096) through the port's static serve path: seeded init,
@@ -57,17 +65,33 @@
    ``srf`` at oversubscription 2.0, so streams are preempted through the
    state pool; lstm-rnnt under ``fifo``): every stream's tokens must equal
    the port's ``decode_single`` on the card;
+   then initialises full-width ``qwen3-4b`` (36 layers, d_model 2560, 32
+   query over 8 KV heads of 128, vocab 151936) on the card from a seed and
+   prefills 2 x 4096 tokens through ``make_serve_fns``: the flash kernel
+   must launch exactly 36 times and no other kernel; each layer's
+   attention output is held against the plain version on that layer's
+   inputs (2 bf16 ulps of the row's largest |value|) and the last-token
+   logits against a run with the plain version in every layer (1 % of the
+   row's largest |logit|, or 1.5 x the spread between the plain version at
+   two tilings where that is wider; argmax equal where the margin exceeds
+   2 %);
+   prompt tokens/s over 3 prefills and kernel 5's share of the device
+   time under the profiler; then serves it statically (B 4, prompt 32, 16
+   greedy tokens, cache 256) in bf16 and with int8 weights and KV cache,
+   where no kernel may launch (decode never reaches flash attention);
 11. times each kernel with CUDA events (L2 flushed, the card held busy while
    the host enqueues the call, so the span is device time) beside its plain
-   version, its bound and, for the GEMM, torch._int_mm;
+   version, its bound and, for the GEMM, torch._int_mm (for flash
+   attention, at the prefill's layer shape, scaled_dot_product_attention);
 12. prints the card's name and power limit, the kernels' JSON line and, as
    the last line, ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before each served path (the two
-static serves, the stepwise pass, the two engine runs) and read just
-after it; a kernel of the path that did not launch fails the run.  The
-kernels' JSON line counts each kernel's launches over the engine runs and
-the stepwise pass.  Each phase prints its
+static serves, the stepwise pass, the two engine runs, the transformer's
+prefill and its two static serves) and read just after it; a kernel of the
+path that did not launch fails the run.  The kernels' JSON line counts each
+kernel's launches over the engine runs and the stepwise pass, and kernel
+5's over the transformer's prefill.  Each phase prints its
 seconds.
 
 Any mismatch, build failure or launch error raises, and the script exits
@@ -98,6 +122,14 @@ ENGINE = dict(n_requests=12, seed=11, prompt_lens=(8, 16, 32),
               gen_lens=(4, 8, 16), arrival_span=8, slots=4, chunk=4)
 ENGINE_RUNS = (("gru-rnnt", "srf", 2.0, 4),  # arch, policy, oversubscribe,
                ("lstm-rnnt", "fifo", 1.0, 0))  # speculate
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+# the transformer path: qwen3-4b at full width, a long-prompt prefill
+# through make_serve_fns (flash attention in every layer) and the static
+# serve (decode only)
+TRANSFORMER = "qwen3-4b"
+PREFILL_B, PREFILL_S = 2, 4096
+SERVE_B, SERVE_PROMPT, SERVE_MAX_LEN = 4, 32, 256
+FLASH_TIMED = dict(B=2, H=32, KVH=8, S=4096, D=128)  # causal, bf16
 
 
 def log(*args):
@@ -432,8 +464,9 @@ def step_kernel_counts(spec, steps):
     step the input, recurrent (and projection) GEMMs, one LayerNorm per
     gate normalised outside the cell, one cell; per GRU step the input
     GEMM and the GRU kernel over one timestep."""
-    counts = {"int8_matmul": 0, "quant_lstm_scan": 0, "quant_gru_scan": 0,
-              "int_layernorm": 0, "quant_lstm_cell": 0}
+    from repro_torch.launch import serve
+
+    counts = {name: 0 for name in serve.KERNELS}
     if spec.cell == "gru":
         counts.update(int8_matmul=steps, quant_gru_scan=steps)
         return counts
@@ -961,6 +994,262 @@ def time_cell_kernels(dev, spec, flush):
     return cell_rows, [row]
 
 
+def check_flash(dev):
+    """Kernel 5 against its plain version at the kernel's own tiles: every
+    shape x dtype x scaling x mask of ``attention_checks.flash_cases``
+    (float32: |d| <= 2e-5 + 2e-5 |ref|; bf16: 2 ulps of the row's largest
+    |ref|).  Returns the largest |difference|."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.testing import attention_checks as AC
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for label, kw in AC.flash_cases(gen):
+        got = FA.flash_attention(**kw)
+        want = FA.flash_attention_plain(**kw)
+        dt = kw["q"].dtype
+        err[dt] = max(err[dt], AC.check_close(f"flash_attention {label}",
+                                              got, want))
+        n += 1
+    torch.cuda.synchronize()
+    log(f"[check] flash_attention: {n} cases ({len(AC.FLASH_SHAPES)} shapes "
+        "x float32/bf16 x own scale/pre-scaled q x causal/non-causal/"
+        f"window 64) within tolerance of the plain version; max |d| "
+        f"float32 {err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}")
+    return max(err.values())
+
+
+def kernel_device_ms(run, names):
+    """``(kernel ms, all device ms)`` of one run under ``torch.profiler``:
+    the device time of the kernels whose name holds one of ``names``,
+    beside the device time of every kernel.  ``(None, None)`` where the
+    profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    mine = sum(e.self_device_time_total for e in events
+               if any(n in e.key for n in names)) / 1e3
+    return (mine, total) if total > 0 else (None, None)
+
+
+def prefill_full_width(dev, repeats=3):
+    """The full-width transformer's prefill through ``make_serve_fns`` at
+    B x S = 2 x 4096: kernel 5 launches once per layer and no other kernel
+    launches; each layer's attention output equals the plain version on
+    that layer's inputs (2 bf16 ulps of the row's largest |value|), the
+    last-token logits equal a run with the plain version in every layer
+    (1 % of the row's largest |logit|, or 1.5 x the plain version's own
+    spread between two tilings where that is wider; argmax where the
+    margin exceeds 2 %); prompt tokens/s and kernel 5's share of the
+    device time."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+    from repro_torch.runtime import train_loop
+    from repro_torch.testing import attention_checks as AC
+
+    cfg = get_config(TRANSFORMER)
+    t0 = time.perf_counter()
+    bundle, params = serve.build_transformer(cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params["layers"].values()) + sum(
+        t.numel() for k, t in params.items() if k != "layers")
+    log(f"[prefill] {cfg.name}: seeded init of {n_params / 1e9:.3f} B bf16 "
+        f"parameters on the card in {time.perf_counter() - t0:.2f}s")
+    prefill_fn, _ = train_loop.make_serve_fns(bundle, dev, PREFILL_B,
+                                              PREFILL_S)
+    batch = {"tokens": serve.random_prompt(cfg, PREFILL_B, PREFILL_S, dev)}
+    real = FA.flash_attention
+    layer_err = []
+
+    def checked(q, k, v, **kw):  # the kernel, then its plain version
+        out = real(q, k, v, **kw)
+        layer_err.append(AC.check_close(
+            f"prefill layer {len(layer_err)} attention", out,
+            FA.flash_attention_plain(q, k, v, **kw)))
+        return out
+
+    def plain(q, k, v, **kw):
+        return FA.flash_attention_plain(q, k, v, **kw)
+
+    def plain_256(q, k, v, **kw):  # the same function at 256-row tiles
+        return FA.flash_attention_plain(q, k, v, **dict(
+            kw, block_q=256, block_k=256))
+
+    serve.reset_launch_counts()
+    FA.flash_attention = checked
+    try:
+        logits = prefill_fn(params, batch)
+    finally:
+        FA.flash_attention = real
+    counts = serve.launch_counts()
+    expect = {name: 0 for name in serve.KERNELS}
+    expect["flash_attention"] = cfg.n_layers
+    path_launches(f"prefill {cfg.name}", counts, expect)
+    if tuple(logits.shape) != (PREFILL_B, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    refs = []
+    for fn in (plain, plain_256):
+        FA.flash_attention = fn
+        try:
+            refs.append(prefill_fn(params, batch))
+        finally:
+            FA.flash_attention = real
+    if serve.launch_counts() != counts:
+        raise AssertionError("the plain-version prefill launched a kernel")
+    # the plain version at two tilings differs by bf16 roundings that flip
+    # with the float32 summation order, compounded over 36 layers: the
+    # whole-pass rule is 1 % or 1.5 x that spread, whichever is larger
+    spread = AC.logit_spread(refs[1], refs[0])
+    limit = max(0.01, 1.5 * spread)
+    logit_err = AC.check_logits("prefill last-token logits", logits,
+                                refs[0], limit=limit)
+    log(f"[prefill] {cfg.name}: every layer's attention output within 2 "
+        f"bf16 ulps of its plain version (largest |d| {max(layer_err):.3g});"
+        f" last-token logits within {logit_err:.4f} of the row's largest "
+        f"|logit| of the plain-version run (the plain version at 512- and "
+        f"256-row tiles differs by {spread:.4f}; limit {limit:.4f}), argmax "
+        "equal where the margin exceeds 2 %")
+    secs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not torch.equal(again, logits):
+            raise AssertionError("a repeated prefill gave other logits")
+    tok_s = sorted(PREFILL_B * PREFILL_S / t for t in secs)
+    flash_ms, device_ms = kernel_device_ms(  # both forms of kernel 5
+        lambda: prefill_fn(params, batch), ("flash_kernel",
+                                            "flash_mma_kernel"))
+    share = flash_ms / device_ms if device_ms else None
+    log(f"[prefill] {cfg.name} B={PREFILL_B} S={PREFILL_S}: prompt tokens/s "
+        f"median {tok_s[repeats // 2]:.1f} (min {tok_s[0]:.1f}, max "
+        f"{tok_s[-1]:.1f}; host clock over {repeats} prefills); profiled: "
+        f"kernel 5 {flash_ms} ms of {device_ms} ms device time (share "
+        f"{share})")
+    out = {"arch": cfg.name, "batch": PREFILL_B, "seq": PREFILL_S,
+           "launches": counts, "layer_max_abs_err": layer_err,
+           "logit_err_of_row_max": logit_err,
+           "plain_tilings_spread_of_row_max": spread, "logit_limit": limit,
+           "prompt_tok_s": tok_s,
+           "prefill_s": sorted(secs),
+           "profiled": {"flash_ms": flash_ms, "device_ms": device_ms,
+                        "flash_share": share}}
+    return out, (bundle, params)
+
+
+def serve_transformer_full_width(dev, model):
+    """The static serve of full-width ``qwen3-4b`` (B 4, prompt 32, 16
+    greedy tokens, cache 256), bf16 and with ``--quant int8`` (int8
+    weights and KV cache): no kernel launches (decode never reaches flash
+    attention); tokens in the vocabulary, logits finite."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import quant_transformer as QT
+
+    bundle, params = model
+    cfg = bundle.cfg
+    prompt = serve.random_prompt(cfg, SERVE_B, SERVE_PROMPT, dev)
+    out = []
+    for quant in ("none", "int8"):
+        if quant == "int8":
+            t0 = time.perf_counter()
+            bundle, params = QT.quantize_bundle(bundle), \
+                QT.quantize_param_tree(params)
+            torch.cuda.synchronize()
+            log(f"[serve] {cfg.name}: int8 weights in "
+                f"{time.perf_counter() - t0:.2f}s")
+        serve.reset_launch_counts()
+        res = serve.serve_transformer(bundle, params, prompt, GEN,
+                                      SERVE_MAX_LEN,
+                                      quantized_cache=quant == "int8")
+        counts = serve.launch_counts()
+        what = f"serve {cfg.name} quant={quant}"
+        path_launches(what, counts, {name: 0 for name in serve.KERNELS})
+        toks = res.tokens
+        if tuple(toks.shape) != (SERVE_B, GEN) or int(toks.min()) < 0 or \
+                int(toks.max()) >= cfg.vocab_size or not bool(
+                    torch.isfinite(res.logits).all()):
+            raise AssertionError(f"{what}: bad tokens {toks} or logits")
+        log(f"[serve] {what} prompt tokens/s: "
+            f"{SERVE_B * SERVE_PROMPT / res.prefill_s:.1f}  decode tokens/s: "
+            f"{SERVE_B * GEN / res.decode_s:.1f}  (prompt teacher-forced "
+            f"through decode: {res.prefill_s * 1e3 / SERVE_PROMPT:.2f} ms a "
+            f"step, decode {res.decode_s * 1e3 / GEN:.2f} ms a step, host "
+            "clock)")
+        log(f"[serve] {what} sample:", toks[0].tolist())
+        out.append({"arch": cfg.name, "quant": quant, "launches": counts,
+                    "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+                    "sample": toks[0].tolist()})
+    return out
+
+
+def time_flash(dev):
+    """Device ms of kernel 5 at a ``qwen3-4b`` prefill layer's shape
+    (causal, bf16), in its tensor-core form (the model's path) and its FMA
+    form, beside its plain version, its bound and
+    ``scaled_dot_product_attention`` (the library yardstick, never used by
+    the port)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.testing import attention_checks as AC
+
+    Bq, H, KVH, S, D = (FLASH_TIMED[k] for k in ("B", "H", "KVH", "S", "D"))
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((Bq, S, H, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((Bq, S, KVH, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((Bq, S, KVH, D), generator=gen, device=dev).bfloat16()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row = dict(FLASH_TIMED, causal=True, dtype="bfloat16",
+               form="tensor cores")
+    row["ms"], row["host_ms"] = cold_ms(lambda: FA.flash_attention(q, k, v),
+                                        10, flush)
+    # the FMA form on the same values (rows unaligned, so it takes them)
+    uq, uk, uv = (AC.unaligned(t) for t in (q, k, v))
+    fma = dict(row, form="float32 FMA (unaligned rows)")
+    fma["ms"], fma["host_ms"] = cold_ms(
+        lambda: FA.flash_attention(uq, uk, uv), 5, flush)
+    row["plain_ms"], _ = cold_ms(lambda: FA.flash_attention_plain(q, k, v),
+                                 1, flush)
+    row["library_ms"], _ = cold_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10, flush)
+    flops = 2 * Bq * H * S * S * D  # the causal half of QK^T and of PV
+    n_bytes = 2 * (2 * Bq * S * H * D + 2 * Bq * S * KVH * D)  # q, o, k, v
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    row["bound_ms"], row["bound_by"] = ((t_ops, "operations")
+                                        if t_ops >= t_bytes
+                                        else (t_bytes, "bytes"))
+    row["bytes_ms"] = t_bytes
+    for key in ("plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bytes_ms"):
+        fma[key] = row[key]
+    log(f"[time] flash_attention B={Bq} H={H} KVH={KVH} S={S} D={D} causal "
+        f"bf16: {row['ms']:.4f} ms on the tensor cores (host enqueue "
+        f"{row['host_ms']:.4f} ms), {fma['ms']:.4f} ms in the FMA form, "
+        f"plain {row['plain_ms']:.1f} ms, scaled_dot_product_attention "
+        f"{row['library_ms']:.4f} ms, bound {t_ops:.4f} ms (operations; "
+        f"bytes {t_bytes:.4f} ms)")
+    torch.cuda.synchronize()
+    return [row, fma]
+
+
 class Phases:
     """Seconds of each phase, printed as it ends."""
 
@@ -991,6 +1280,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as KF
     from repro_torch.kernels import int8_matmul as K1
     from repro_torch.kernels import int_layernorm as KL
     from repro_torch.kernels import quant_gru_scan as KG
@@ -1023,6 +1313,8 @@ def main() -> int:
     phases.done("check quant_gru_scan")
     check_stepwise_layers(dev, gru_layer)
     phases.done("check stepwise layers")
+    err_flash = check_flash(dev)
+    phases.done("check flash_attention")
     lstm_serve, lstm_model = serve_full_width(dev, "lstm-rnnt", REPEATS)
     phases.done("serve lstm-rnnt")
     stepwise = stepwise_full_width(dev, lstm_model)
@@ -1035,14 +1327,22 @@ def main() -> int:
         engines.append(engine_full_width(models[arch], policy, ratio,
                                          speculate))
         phases.done(f"engine {arch}")
+    prefill, transformer = prefill_full_width(dev)
+    phases.done(f"prefill {TRANSFORMER}")
+    transformer_serve = serve_transformer_full_width(dev, transformer)
+    del transformer
+    phases.done(f"serve {TRANSFORMER}")
     gemm, scan, gru_scan, (cell, ln) = time_kernels(dev, lstm_layer,
                                                     gru_layer)
+    flash = time_flash(dev)
     phases.done("timing")
 
     # the main paths of the slices so far: the engine on both models and
     # the stepwise pass of lstm-rnnt; each kernel's launches over them
     launches = {name: sum(e["launches"][name] for e in engines)
                 + stepwise["launches"][name] for name in stepwise["launches"]}
+    # kernel 5's main path: the long-prompt prefill of the transformer
+    launches["flash_attention"] = prefill["launches"]["flash_attention"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1063,12 +1363,17 @@ def main() -> int:
         kernel_entry("quant_lstm_cell", KC, launches["quant_lstm_cell"],
                      err_cell, cell[0], "B=4 H=2048, the lstm-rnnt form (a "
                      "stepwise step)", cell),
+        kernel_entry("flash_attention", KF, launches["flash_attention"],
+                     err_flash, flash[0], "B=2 H=32 KVH=8 S=4096 D=128 "
+                     "causal bf16, tensor-core form (a qwen3-4b prefill "
+                     "layer)", flash),
     ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"gpu": smi, "build_s": secs, "kernels": kernels,
                    "serve": [lstm_serve, gru_serve], "engine": engines,
-                   "stepwise": stepwise,
+                   "stepwise": stepwise, "prefill": prefill,
+                   "transformer_serve": transformer_serve,
                    "batch": B, "prompt_len": T, "gen": GEN,
                    "phase_s": phases.seconds}, f, indent=1)
     log(smi)

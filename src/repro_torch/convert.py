@@ -4,8 +4,11 @@ Both functions take plain numpy (what ``jax.device_get`` returns) and
 Python containers, so this module needs neither JAX nor the reference
 package:
 
-* ``params_from_numpy``: the reference LM's float param tree -> the port's
-  params (bf16 stays bf16, float32 stays float32);
+* ``params_from_numpy``: a reference param tree -> the port's params
+  (bf16 stays bf16, float32 stays float32, int8 stays int8; nested dicts
+  keep their keys, so the transformer's stacked ``(L, ...)`` layer leaves
+  and its int8 ``{"q": (L, in, out), "s": (L, out)}`` leaves carry over
+  as they are);
 * ``qlayers_from_numpy``: the reference's quantized ``[(arrays, spec)]``
   list, each spec given as ``dataclasses.asdict(spec)`` -> the port's
   ``(arrays, QLSTMSpec | QGRUSpec)`` list.
@@ -40,7 +43,7 @@ def _tree(x, device):
 
 
 def params_from_numpy(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """The reference LM's float params (numpy tree) -> the port's params."""
+    """A reference param tree (numpy leaves) -> the port's params."""
     return _tree(params, device)
 
 

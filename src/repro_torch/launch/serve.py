@@ -1,10 +1,13 @@
-"""Integer serving of the recurrent LM (LSTM or GRU) on the GPU.
+"""Serving on the GPU: the integer recurrent LM (LSTM or GRU) and the
+dense transformer family.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch lstm-rnnt \
         --quant int8-lstm --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-rnnt \
         --quant int8-gru --engine --slots 4 --requests 12 --chunk 4 \
         --speculate 4 --policy srf --oversubscribe 2.0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+        [--quant int8] --batch 4 --prompt-len 32 --gen 16 --max-len 256
 
 Seeded float init, calibration and the Table-2 recipe, then either the
 static batch (ONE integer prefill over the prompt and a greedy decode
@@ -14,8 +17,15 @@ continuous-batching engine (``launch/engine.py``: chunked prefill
 with preemption through the state pool under ``--oversubscribe``).  The
 workload is synthetic (``--requests N``) or a JSON trace (``--trace``).
 Every layer of every step launches the int8 GEMM kernel once (hoisted input
-stage) and the cell's sequence kernel once (recurrent stage).  ``--device
-cpu`` runs the same path through the kernels' plain versions.
+stage) and the cell's sequence kernel once (recurrent stage).
+
+A transformer (``--quant none``, the default, or ``int8``: int8 weights and
+an int8 KV cache) is served as the reference launcher's static path does:
+seeded bf16 init, the prompt teacher-forced through ``decode_step`` into a
+``--max-len`` cache, then greedy decoding.  Decode never reaches the flash
+kernel: only a prefill of more than 1024 positions does
+(``runtime.train_loop.make_serve_fns``).  ``--device cpu`` runs every path
+through the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -27,14 +37,17 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..configs.registry import get_config
-from ..kernels import (int8_matmul, int_layernorm, quant_gru_scan,
-                       quant_lstm_cell, quant_lstm_scan)
-from ..models import lstm_lm
+from ..kernels import (flash_attention, int8_matmul, int_layernorm,
+                       quant_gru_scan, quant_lstm_cell, quant_lstm_scan)
+from ..models import lstm_lm, model_zoo, quant_transformer
+from ..runtime import train_loop
 from . import engine as E
 
 KERNELS = {"int8_matmul": int8_matmul, "quant_lstm_scan": quant_lstm_scan,
            "quant_gru_scan": quant_gru_scan, "int_layernorm": int_layernorm,
-           "quant_lstm_cell": quant_lstm_cell}
+           "quant_lstm_cell": quant_lstm_cell,
+           "flash_attention": flash_attention}
+RECURRENT_QUANT = ("int8-lstm", "int8-gru")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -111,6 +124,80 @@ def serve(params, qlayers, cfg, prompt: torch.Tensor, n_gen: int
         launches={k: v - counts0[k] for k, v in launch_counts().items()})
 
 
+@dataclasses.dataclass
+class TransformerServeResult:
+    tokens: torch.Tensor  # (B, gen) int64 greedy tokens
+    prefill_s: float
+    decode_s: float
+    logits: torch.Tensor  # (B, vocab) the last decode step's logits
+    launches: Dict[str, int]  # kernel launches during prefill + decode
+
+
+def build_transformer(cfg, device, quant: str = "none", seed: int = 0):
+    """``(bundle, params)``: seeded bf16 init on ``device``; with ``quant
+    == "int8"`` the params and the bundle's cache are quantized, as the
+    reference launcher does."""
+    bundle = model_zoo.build(cfg)
+    params = bundle.init(torch.Generator(device=device).manual_seed(seed),
+                         device)
+    if quant == "int8":
+        params = quant_transformer.quantize_param_tree(params)
+        bundle = quant_transformer.quantize_bundle(bundle)
+    return bundle, params
+
+
+def serve_transformer(bundle, params, prompt: torch.Tensor, n_gen: int,
+                      max_len: int, quantized_cache: bool = False
+                      ) -> TransformerServeResult:
+    """Teacher-force ``prompt`` (B, P) through ``decode`` into a fresh
+    cache, then ``n_gen`` greedy tokens; the first greedy token is fed
+    back but not returned, as in the reference's greedy loop."""
+    device = prompt.device
+    B = prompt.shape[0]
+    counts0 = launch_counts()
+    _, decode = train_loop.make_serve_fns(bundle, device, B, max_len,
+                                          quantized_cache)
+    state = bundle.init_state(B, max_len, quantized=quantized_cache,
+                              device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for t in range(prompt.shape[1]):
+        logits, state = decode(params, prompt[:, t:t + 1], state)
+    _sync(device)
+    t1 = time.perf_counter()
+    out: List[torch.Tensor] = []
+    tok = logits.argmax(-1)[:, None]
+    for _ in range(n_gen):
+        logits, state = decode(params, tok, state)
+        tok = logits.argmax(-1)[:, None]
+        out.append(tok)
+    _sync(device)
+    t2 = time.perf_counter()
+    return TransformerServeResult(
+        tokens=torch.cat(out, dim=1) if out else prompt.new_zeros((B, 0)),
+        prefill_s=t1 - t0, decode_s=t2 - t1, logits=logits,
+        launches={k: v - counts0[k] for k, v in launch_counts().items()})
+
+
+def _serve_transformer_cli(args, cfg, device) -> None:
+    t0 = time.perf_counter()
+    bundle, params = build_transformer(cfg, device, args.quant)
+    _sync(device)
+    print(f"initialized {cfg.name} ({cfg.n_layers} layers, quant="
+          f"{args.quant}) in {time.perf_counter() - t0:.1f}s "
+          f"(device={device})")
+    prompt = random_prompt(cfg, args.batch, args.prompt_len, device)
+    res = serve_transformer(bundle, params, prompt, args.gen, args.max_len,
+                            quantized_cache=args.quant == "int8")
+    print(f"arch={cfg.name} quant={args.quant} device={device}")
+    print(f"prompt tokens/s: {args.batch * args.prompt_len / res.prefill_s:.1f}")
+    if args.gen:
+        print(f"decode tokens/s: {args.batch * args.gen / res.decode_s:.1f}")
+    print("kernel launches:", " ".join(
+        f"{k}={v}" for k, v in res.launches.items()))
+    print("sample:", res.tokens[0].tolist())
+
+
 def random_prompt(cfg, batch: int, prompt_len: int, device, seed: int = 1):
     gen = torch.Generator(device=device).manual_seed(seed)
     return torch.randint(0, cfg.vocab_size, (batch, prompt_len),
@@ -180,11 +267,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--quant", required=True,
-                    choices=["int8-lstm", "int8-gru"])
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "int8", *RECURRENT_QUANT],
+                    help="none/int8: a transformer in bf16 or with int8 "
+                         "weights and KV cache; int8-lstm/int8-gru: the "
+                         "integer recurrent LM")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=256,
+                    help="KV cache length of the transformer path")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--engine", action="store_true",
                     help="serve a request queue through the "
@@ -223,15 +315,24 @@ def main(argv: Optional[List[str]] = None) -> None:
                             or args.speculate or args.chunk > 1):
         ap.error("--chunk/--speculate/--policy/--oversubscribe require "
                  "--engine")
+    if args.engine and args.quant not in RECURRENT_QUANT:
+        ap.error("--engine requires --quant int8-lstm or int8-gru")
     cfg = get_config(args.arch, smoke=args.smoke)
-    want = args.quant.split("-", 1)[1]  # int8-gru -> gru
-    if cfg.family != "lstm" or lstm_lm.rnn_cell(cfg) != want:
-        raise SystemExit(f"--quant {args.quant} needs a {want.upper()} stack, "
-                         f"got {cfg.name}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
                          "versions")
+    if args.quant not in RECURRENT_QUANT:
+        if cfg.family not in model_zoo.PORTED:
+            raise SystemExit(f"--quant {args.quant} serves the "
+                             f"{'/'.join(model_zoo.PORTED)} families, got "
+                             f"{cfg.name} ({cfg.family})")
+        _serve_transformer_cli(args, cfg, device)
+        return
+    want = args.quant.split("-", 1)[1]  # int8-gru -> gru
+    if cfg.family != "lstm" or lstm_lm.rnn_cell(cfg) != want:
+        raise SystemExit(f"--quant {args.quant} needs a {want.upper()} stack, "
+                         f"got {cfg.name}")
     t0 = time.perf_counter()
     params, qlayers = build_model(cfg, args.batch, args.prompt_len, device)
     print(f"calibrated+quantized {len(qlayers)} {want.upper()} layers in "

@@ -1,19 +1,29 @@
-"""Token embedding + logits head (port of ``repro.layers.embedding``)."""
+"""Token embedding + logits head (port of ``repro.layers.embedding``).
+
+Both tables may be int8 dicts (``quant_transformer.quantize_param_tree``);
+``qmm`` dequantizes them inside the lookup and the head.  The training
+loss (``cross_entropy``) is not ported yet.
+"""
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
 
-from .qmm import emb_lookup, mm
+from .qmm import emb_logits, emb_lookup, mm
 
 
 def embed_init(generator: torch.Generator, vocab: int, d_model: int,
-               params: Dict, device=None) -> None:
-    """bf16 embedding table, N(0, 0.02^2), drawn on ``generator``'s device."""
+               params: Dict, device=None, tie: bool = True) -> None:
+    """bf16 embedding table, N(0, 0.02^2), drawn on ``generator``'s device;
+    with ``tie=False`` also an untied ``(d_model, vocab)`` head."""
     emb = torch.randn((vocab, d_model), generator=generator,
                       device=generator.device) * 0.02
     params["embedding"] = emb.to(device=device, dtype=torch.bfloat16)
+    if not tie:
+        head = torch.randn((d_model, vocab), generator=generator,
+                           device=generator.device) * 0.02
+        params["lm_head"] = head.to(device=device, dtype=torch.bfloat16)
 
 
 def embed_tokens(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -23,4 +33,4 @@ def embed_tokens(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
 def logits_head(params: Dict, x: torch.Tensor) -> torch.Tensor:
     if "lm_head" in params:
         return mm(x, params["lm_head"])
-    return mm(x, params["embedding"].t())
+    return emb_logits(params["embedding"], x)

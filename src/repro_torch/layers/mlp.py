@@ -1,0 +1,59 @@
+"""MLP variants: SwiGLU, GeGLU and GELU (port of ``repro.layers.mlp``).
+
+The activations are written op by op in the input's dtype, as the
+reference computes them: ``jax.nn.silu`` is ``x * sigmoid(x)`` with the
+logistic expanded to ``1 / (1 + exp(-x))``, and ``jax.nn.gelu`` is the
+tanh approximation with its constants in the input's dtype; in bf16 every
+op rounds.  ``F.silu``/``F.gelu`` round once and move a smoke model's
+logits by ~2 % of the row's largest (ROADMAP Queue 3, F5).
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from .common import dense_init
+from .qmm import mm
+
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, kind: str,
+             params: Dict, prefix: str = "mlp", dtype=torch.bfloat16,
+             device=None, stack: Sequence[int] = ()) -> None:
+    """The MLP's weights, each of shape ``(*stack, in, out)``."""
+    stack = tuple(stack)
+    if kind in ("swiglu", "geglu"):
+        params[f"{prefix}_gate"] = dense_init(
+            generator, stack + (d_model, d_ff), dtype, device=device)
+    params[f"{prefix}_up"] = dense_init(
+        generator, stack + (d_model, d_ff), dtype, device=device)
+    params[f"{prefix}_down"] = dense_init(
+        generator, stack + (d_ff, d_model), dtype, device=device)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float (no device copy)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation, ``jax.nn.gelu(x, approximate=True)``."""
+    c = _in_dtype(np.sqrt(2 / np.pi), x.dtype)
+    k = _in_dtype(0.044715, x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * (x * x)))))
+    return x * cdf
+
+
+def mlp_apply(params: Dict, x: torch.Tensor, kind: str, prefix: str = "mlp"
+              ) -> torch.Tensor:
+    if kind in ("swiglu", "geglu"):
+        act = silu if kind == "swiglu" else gelu
+        h = act(mm(x, params[f"{prefix}_gate"])) * mm(x, params[f"{prefix}_up"])
+    else:
+        h = gelu(mm(x, params[f"{prefix}_up"]))
+    return mm(h, params[f"{prefix}_down"])

@@ -1,0 +1,59 @@
+"""Unified model API: build an architecture's serving functions from its
+``ArchConfig`` (port of ``repro.models.model_zoo``).
+
+``build(cfg)`` returns a ``ModelBundle`` of plain functions:
+
+    init(generator, device)                -> params
+    prefill(params, batch)                 -> last-token logits (B, vocab)
+    init_state(batch, max_len, quantized)  -> decode cache
+    decode(params, token, state)           -> (logits (B, vocab), state)
+
+for the ``dense`` and ``vlm`` families (``batch`` is ``{"tokens": (B, S)}``,
+plus ``"frontend_embeds": (B, F, d)`` for the VLM stub).  The training
+``loss`` and the dry-run's ``input_specs`` are not ported; the other
+families raise (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from ..configs.base import ArchConfig
+from . import transformer
+
+PORTED = ("dense", "vlm")
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    cfg: ArchConfig
+    init: Callable
+    prefill: Callable
+    init_state: Callable
+    decode: Callable
+
+
+def build(cfg: ArchConfig) -> ModelBundle:
+    if cfg.family not in PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            f"(ported: {', '.join(PORTED)}; ROADMAP Queue 1)")
+    transformer.check_dense(cfg)
+
+    def init(generator, device=None):
+        return transformer.init_params(generator, cfg, device)
+
+    def prefill(params, batch):
+        return transformer.prefill(
+            params, cfg, batch["tokens"],
+            frontend_embeds=batch.get("frontend_embeds"))
+
+    def init_state(batch, max_len, quantized=False, device=None):
+        return transformer.init_decode_cache(cfg, batch, max_len,
+                                             quantized=quantized,
+                                             device=device)
+
+    def decode(params, token, state):
+        return transformer.decode_step(params, cfg, token, state)
+
+    return ModelBundle(cfg, init, prefill, init_state, decode)

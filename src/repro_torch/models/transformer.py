@@ -1,0 +1,239 @@
+"""Decoder-only dense transformer LM: init, forward, prefill, decode.
+
+Port of the dense path of ``repro.models.transformer`` (qwen3-4b,
+stablelm-1.6b, yi-34b, qwen1.5-0.5b and the VLM internvl2-2b with its
+patch-embedding stub prepended).  Params are a dict of tensors with the
+reference's layout: each per-layer weight is stacked on a leading
+``(n_layers, ...)`` axis under ``params["layers"]``, and ``_run_layers``
+walks the layers in a Python loop (views, no copies).  A quantized tree
+(``quant_transformer.quantize_param_tree``) runs through the same code.
+
+A prefill of S > 1024 tokens runs ``attention.flash_attention`` in every
+layer, which launches the hand-written CUDA kernel on the card; shorter
+ones run ``full_attention``.  MoE configs (``n_experts > 0``) are not
+ported yet (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..layers import attention as attn
+from ..layers import embedding as emb
+from ..layers import qmm
+from ..layers.common import dense_init, norm_apply, norm_init, rmsnorm
+from ..layers.mlp import mlp_apply, mlp_init
+from ..layers.rotary import apply_rope
+
+FLASH_MIN_SEQ = 1024  # a forward of more positions than this runs flash
+
+
+def check_dense(cfg: ArchConfig) -> None:
+    if cfg.n_experts > 0 or cfg.n_dense_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1: "
+            "layers/moe.py, qmm.expert_einsum)")
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+
+def _layers_init(generator: torch.Generator, cfg: ArchConfig, device
+                 ) -> Dict[str, torch.Tensor]:
+    """Every layer's weights, stacked on a leading (n_layers,) axis."""
+    L = (cfg.n_layers,)
+    d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p: Dict[str, Any] = {}
+    norm_init(cfg.norm_type, d, "norm_attn", p, device=device, stack=L)
+    norm_init(cfg.norm_type, d, "norm_mlp", p, device=device, stack=L)
+    for name, shape in (("wq", (d, H * hd)), ("wk", (d, KVH * hd)),
+                        ("wv", (d, KVH * hd)), ("wo", (H * hd, d))):
+        p[name] = dense_init(generator, L + shape, device=device)
+    if cfg.qkv_bias:
+        for name, w in (("bq", H * hd), ("bk", KVH * hd), ("bv", KVH * hd)):
+            p[name] = torch.zeros(L + (w,), dtype=torch.bfloat16,
+                                  device=device)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = torch.ones(L + (hd,), dtype=torch.bfloat16,
+                                 device=device)
+    mlp_init(generator, d, cfg.d_ff, cfg.mlp_type, p, device=device, stack=L)
+    return p
+
+
+def init_params(generator: torch.Generator, cfg: ArchConfig, device=None
+                ) -> Dict[str, Any]:
+    """Random bf16 params from a seeded generator, placed on ``device``."""
+    check_dense(cfg)
+    params: Dict[str, Any] = {}
+    emb.embed_init(generator, cfg.vocab_size, cfg.d_model, params, device,
+                   tie=cfg.tie_embeddings)
+    norm_init(cfg.norm_type, cfg.d_model, "norm_final", params, device=device)
+    params["layers"] = _layers_init(generator, cfg, device)
+    return params
+
+
+def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i`` of a stacked tree (int8 ``{"q", "s"}`` leaves too)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+
+def _qk_normalize(cfg: ArchConfig, q, k, p):
+    if not cfg.qk_norm:
+        return q, k
+    return rmsnorm(q, p["q_norm"]), rmsnorm(k, p["k_norm"])
+
+
+def _attention_block(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+                     positions: torch.Tensor, cache: Optional[Dict] = None
+                     ) -> torch.Tensor:
+    """Self-attention of one layer.  With ``cache`` (decode) the step's K/V
+    are written into the cache tensors in place, at ``pos % S_cache``."""
+    B, S, d = x.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = qmm.mm(x, p["wq"])
+    k = qmm.mm(x, p["wk"])
+    v = qmm.mm(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KVH, hd)
+    v = v.reshape(B, S, KVH, hd)
+    q, k = _qk_normalize(cfg, q, k, p)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        if S > FLASH_MIN_SEQ:
+            # the kernel reads KV head h // (H // KVH) in place of repeat_kv
+            o = attn.flash_attention(q, k, v, causal=True,
+                                     window=cfg.attn_window)
+        else:
+            kr = attn.repeat_kv(k, H // KVH)
+            vr = attn.repeat_kv(v, H // KVH)
+            o = attn.full_attention(q, kr, vr, causal=True,
+                                    window=cfg.attn_window)
+    else:
+        # decode: ring-buffer write at pos % S_cache (the start clamped so
+        # the S new positions fit, as dynamic_update_slice clamps it)
+        k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
+        s_cache = k_cache.shape[1]
+        wpos = min(pos % s_cache, s_cache - S)
+        k_scale = v_scale = None
+        if k_cache.dtype == torch.int8:
+            k, ks = attn.quantize_kv(k)
+            v, vs = attn.quantize_kv(v)
+            k_scale, v_scale = cache["k_scale"], cache["v_scale"]
+            k_scale[:, wpos:wpos + S] = ks.to(k_scale.dtype)
+            v_scale[:, wpos:wpos + S] = vs.to(v_scale.dtype)
+        k_cache[:, wpos:wpos + S] = k.to(k_cache.dtype)
+        v_cache[:, wpos:wpos + S] = v.to(v_cache.dtype)
+        o = attn.decode_attention(q, k_cache, v_cache, min(pos + 1, s_cache),
+                                  window=0, k_scale=k_scale, v_scale=v_scale)
+    return qmm.mm(o.reshape(B, S, H * hd), p["wo"])
+
+
+def _block(p: Dict, cfg: ArchConfig, x, positions, cache=None):
+    h = _attention_block(p, cfg, norm_apply(cfg.norm_type, x, p, "norm_attn"),
+                         positions, cache)
+    # the residual sum reaches the MLP's norm unrounded and the residual
+    # stream rounded to x's dtype, as the jitted reference computes it (XLA
+    # drops the bf16 round trip before the norm; ROADMAP Queue 3, F6)
+    x2 = x.float() + h.float()
+    y = mlp_apply(p, norm_apply(cfg.norm_type, x2, p, "norm_mlp").to(x.dtype),
+                  cfg.mlp_type)
+    return x2.to(x.dtype) + y
+
+
+def _run_layers(params, cfg: ArchConfig, x, positions,
+                caches: Optional[Dict] = None):
+    """The layers in order, one Python loop over the stacked weights."""
+    for i in range(cfg.n_layers):
+        cache = None
+        if caches is not None:
+            cache = {k: t[i] for k, t in caches["main"].items()}
+            cache["pos"] = caches["len"]
+        x = _block(layer_params(params["layers"], i), cfg, x, positions, cache)
+    if caches is None:
+        return x, None
+    return x, dict(caches, len=caches["len"] + 1)
+
+
+def _embed(params, tokens, frontend_embeds):
+    x = emb.embed_tokens(params, tokens)
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S_total, vocab).  ``frontend_embeds``
+    (B, F, d) are prepended (VLM patch stub).  The reference also returns
+    the MoE auxiliary loss, which a dense model does not have."""
+    check_dense(cfg)
+    x = _embed(params, tokens, frontend_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = _run_layers(params, cfg, x, positions)
+    x = norm_apply(cfg.norm_type, x, params, "norm_final")
+    return emb.logits_head(params, x)
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
+
+
+def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
+                      dtype=torch.bfloat16, quantized: bool = False,
+                      device=None) -> Dict[str, Any]:
+    """Stacked per-layer K/V caches (bf16, or int8 with float16 scales per
+    (position, KV head)); ``len`` counts the positions written, a Python
+    int here (the reference's int32 scalar)."""
+    check_dense(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kv_dtype = torch.int8 if quantized else dtype
+    c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+         "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+    if quantized:
+        for name in ("k_scale", "v_scale"):
+            c[name] = torch.ones(shape[:4], dtype=torch.float16,
+                                 device=device)
+    return {"main": c, "len": 0}
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
+            max_len: Optional[int] = None,
+            frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run the prompt, return the last position's logits (B, vocab).  The
+    head runs on that position alone, which equals the last row of the
+    full logits (the final norm is per position)."""
+    check_dense(cfg)
+    x = _embed(params, tokens, frontend_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = _run_layers(params, cfg, x, positions)
+    x = norm_apply(cfg.norm_type, x[:, -1:], params, "norm_final")
+    return emb.logits_head(params, x)[:, 0]
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
+                caches: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
+    """token (B, 1) + caches -> (logits (B, vocab), caches with len + 1).
+    The cache tensors are updated in place (the reference returns new
+    arrays); the returned dict shares them."""
+    x = emb.embed_tokens(params, token)
+    positions = torch.full((1,), caches["len"], dtype=torch.int32,
+                           device=x.device)
+    x, new_caches = _run_layers(params, cfg, x, positions, caches)
+    x = norm_apply(cfg.norm_type, x, params, "norm_final")
+    return emb.logits_head(params, x[:, -1]), new_caches

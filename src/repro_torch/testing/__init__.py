@@ -1,1 +1,1 @@
-"""Inputs shared by ``chip_smoke.py`` and the ``gpu``-marked tests."""
+"""Inputs and tolerances shared by ``chip_smoke.py`` and the tests."""

@@ -172,7 +172,7 @@ def test_serve_smoke_launches_each_kernel_per_layer_and_step(cuda):
     expect = cfg.n_layers * (1 + 3)
     assert res.launches == {"int8_matmul": expect, "quant_lstm_scan": expect,
                             "quant_gru_scan": 0, "int_layernorm": 0,
-                            "quant_lstm_cell": 0}
+                            "quant_lstm_cell": 0, "flash_attention": 0}
     assert tuple(res.tokens.shape) == (2, 3)
 
 
@@ -306,3 +306,49 @@ def test_cuda_stepwise_gru_layer_never_reaches_plain(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert (K1.launches, KG.launches) == (before[0] + 5, before[1] + 5)
     assert torch.equal(ys, hoisted[0]) and torch.equal(h, hoisted[1][0])
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 4, 256, 64), (1, 32, 8, 1100, 128),
+                                   (2, 32, 8, 4096, 128)],
+                         ids=["S256-D64", "S1100-D128", "S4096-D128"])
+def test_flash_kernel_matches_plain(cuda, shape):
+    """Kernel 5 against its plain version at its own tiles, on the shapes
+    ``chip_smoke.py`` checks: float32 and bf16, its own scale and q
+    pre-scaled, causal / non-causal / window 64 (float32 within 2e-5 +
+    2e-5 |ref|, bf16 within 2 ulps of the row's largest |ref|)."""
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.testing import attention_checks as AC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    for label, kw in AC.flash_cases(gen, shapes=(shape,)):
+        before = KF.launches
+        got = KF.flash_attention(**kw)
+        assert KF.launches == before + 1
+        AC.check_close(label, got, KF.flash_attention_plain(**kw))
+
+
+def test_cuda_transformer_prefill_never_reaches_plain(cuda, monkeypatch):
+    """A CUDA prefill at S > 1024 of ``qwen3-4b-smoke`` (head_dim 16, GQA
+    4:2) runs with the flash plain version patched to raise, launching the
+    kernel once per layer; a prefill at S <= 1024 launches it never."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.launch import serve
+    from repro_torch.runtime import train_loop
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA prefill reached the plain version")
+
+    monkeypatch.setattr(KF, "flash_attention_plain", refuse)
+    cfg = get_config("qwen3-4b", smoke=True)
+    bundle, params = serve.build_transformer(cfg, cuda)
+    prefill, _ = train_loop.make_serve_fns(bundle, cuda, 2, 1100)
+    for S, launched in ((1100, cfg.n_layers), (64, 0)):
+        before = KF.launches
+        logits = prefill(params, {"tokens": serve.random_prompt(
+            cfg, 2, S, cuda)})
+        torch.cuda.synchronize()
+        assert KF.launches == before + launched
+        assert logits.shape == (2, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
