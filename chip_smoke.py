@@ -17,14 +17,19 @@
    and its peephole o gate with and without the in-fusion LayerNorm at
    H = 2048; and the integer LayerNorm kernel at row lengths 1..16384 with
    constant rows (V = 0) and rows at the int16 extremes;
-5. holds the LSTM sequence kernel against its plain version: all 16 LSTM
-   variants at small widths, then a full-width LN+projection layer from
-   the port's own recipe, unmasked and masked, each from the reset state
-   and continued from the carried (nonzero) state, at the decode shape
-   (B = 4, T = 1) too;
+5. holds the LSTM sequence kernel (one cooperative grid per call, the
+   layer's weights split over the CTAs' shared memory) against its plain
+   version: all 16 LSTM variants at small widths, then a full-width
+   LN+projection layer from the port's own recipe, and an LN+projection+
+   peephole layer at H = 1001 (which the split leaves ragged: u = 8 units
+   on 126 CTAs, the last holding one), unmasked and masked, each from the
+   reset state and continued from the carried (nonzero) state, at the
+   decode shape (T = 1) too, every case at B = 1, 4, 16 and 64 (which
+   passes through the kernel in two groups of rows at full width);
 6. holds the GRU sequence kernel against its plain version in the same
    way: both GRU variants (noLN, LN) at small widths, then a full-width
-   LN layer (d_in = H = 2048) at B = 4, T = 32 and T = 1;
+   LN layer (d_in = H = 2048) and an LN layer at H = 1001, at T = 32 and
+   T = 1, B = 1, 4 and 16;
 7. holds the stepwise executor (per LSTM step: the GEMM for the input, the
    recurrent product and the projection, one LayerNorm kernel per gate,
    the cell kernel; per GRU step: the GEMM and the GRU kernel over one
@@ -33,7 +38,8 @@
    LN+projection+peephole layer, both GRU variants and the full-width GRU
    layer; each call's launches must be exactly those of its steps;
    then holds the flash-attention kernel against its plain version at its
-   own 64 x 64 tiles: (B, H, KVH, S, D) in {(2, 4, 4, 256, 64), (1, 32, 8,
+   own tiles (128 x 128 in the tensor-core form, 64 x 64 in the FMA
+   form): (B, H, KVH, S, D) in {(2, 4, 4, 256, 64), (1, 32, 8,
    1100, 128), (2, 32, 8, 4096, 128)} x float32/bf16 x (its own scale, or q
    pre-scaled in its dtype as the model's layer does) x (causal,
    non-causal, causal with window 64), and per shape a bf16 case with
@@ -83,6 +89,7 @@
    the host enqueues the call, so the span is device time) beside its plain
    version, its bound and, for the GEMM, torch._int_mm (for flash
    attention, at the prefill's layer shape, scaled_dot_product_attention);
+   and the sequence kernels' grid barrier alone;
 12. prints the card's name and power limit, the kernels' JSON line and, as
    the last line, ``{"ok": true, "device": {...}}``.
 
@@ -130,6 +137,7 @@ TRANSFORMER = "qwen3-4b"
 PREFILL_B, PREFILL_S = 2, 4096
 SERVE_B, SERVE_PROMPT, SERVE_MAX_LEN = 4, 32, 256
 FLASH_TIMED = dict(B=2, H=32, KVH=8, S=4096, D=128)  # causal, bf16
+BARRIER_CTAS = 128  # the sequence kernels' grid at full width
 
 
 def log(*args):
@@ -339,35 +347,80 @@ def check_layer(what, arrays, spec, xs_q, vl_full, vl_next, t_next):
         arrays, spec, nxt, vl_next, state0=carried)))
 
 
+# rows the sequence kernels are checked at; 64 passes in two groups at full
+# width
+SCAN_BATCHES = (1, B, 16, 64)
+
+
+def batch_inputs(spec, xs, Bx, gen):
+    """The layer's int8 input at ``Bx`` rows: ``xs`` itself at B rows,
+    else seeded float inputs of ``xs``'s scale quantized the same way."""
+    import torch
+    from repro_torch.models import quant_lstm as QL
+
+    if Bx != xs.shape[0]:
+        xs = 0.8 * torch.randn((Bx,) + tuple(xs.shape[1:]), generator=gen,
+                               device=xs.device)
+    return QL.quantize_input(xs, spec.s_x, spec.zp_x)
+
+
+def batch_lens(base, Bx, dev):
+    """``base`` valid lengths cycled over ``Bx`` rows (one row: the second,
+    a partial length)."""
+    import torch
+
+    vals = [base[(i + int(Bx == 1)) % len(base)] for i in range(Bx)]
+    return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+
+def check_layer_batches(what, arrays, spec, xs, full, nxt, t_next, gen):
+    """``check_layer`` at every batch size of ``SCAN_BATCHES``."""
+    err = 0
+    dev = xs.device
+    for Bx in SCAN_BATCHES:
+        xs_q = batch_inputs(spec, xs, Bx, gen)
+        err = max(err, check_layer(f"{what} B={Bx}", arrays, spec, xs_q,
+                                   batch_lens(full, Bx, dev),
+                                   batch_lens(nxt, Bx, dev), t_next))
+    return err
+
+
 def check_scan(dev):
     import torch
     from repro_torch.models import lstm as L
     from repro_torch.models import quant_lstm as QL
 
-    def lens(*v):
-        return torch.tensor(v, dtype=torch.int32, device=dev)
-
+    gen = torch.Generator(device=dev).manual_seed(17)
     err = 0
     for i, variant in enumerate(L.ALL_VARIANTS):
         for d_in, H, d_proj in ((10, 13, 6), (24, 40, 12), (24, 48, 10)):
             arrays, spec, xs = quantized_layer(variant, d_in, H, d_proj, dev,
                                                seed=100 + i)
-            xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
-            err = max(err, check_layer(f"{variant.name} H={H}", arrays, spec,
-                                       xs_q, lens(6, 3, 0, 1), lens(2, 1, 0, 2),
-                                       2))
-    log("[check] quant_lstm_scan: 16 variants x 3 widths, from the reset and "
-        "the carried state, plain and masked, bit-exact vs plain")
+            err = max(err, check_layer_batches(
+                f"{variant.name} H={H}", arrays, spec, xs, (6, 3, 0, 1),
+                (2, 1, 0, 2), 2, gen))
+    log("[check] quant_lstm_scan: 16 variants x 3 widths x B in "
+        f"{SCAN_BATCHES}, from the reset and the carried state, plain and "
+        "masked, bit-exact vs plain")
+    variant = L.LSTMVariant(use_layernorm=True, use_projection=True,
+                            use_peephole=True)
+    arrays, spec, xs = quantized_layer(variant, 333, 1001, 333, dev, seed=8,
+                                       calib_T=T)
+    err = max(err, check_layer_batches(
+        "H=1001 LN+projection+peephole layer", arrays, spec, xs,
+        (T, 17, 1, 0), (1, 0, 1, 0), 1, gen))
     variant = L.LSTMVariant(use_layernorm=True, use_projection=True)
     arrays, spec, xs = quantized_layer(variant, 640, 2048, 640, dev, seed=7,
                                        calib_T=T)
+    err = max(err, check_layer_batches("full-width layer", arrays, spec, xs,
+                                       (T, 17, 1, 0), (1, 0, 1, 0), 1, gen))
     xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
-    err = max(err, check_layer("full-width layer", arrays, spec, xs_q,
-                               lens(T, 17, 1, 0), lens(1, 0, 1, 0), 1))
     torch.cuda.synchronize()
     log("[check] quant_lstm_scan: full-width LN+projection layer "
-        "(H=2048, d_proj=640, B=4): T=32 from the reset state and T=1 (the "
-        "decode shape) from its carried state, plain and masked, bit-exact")
+        "(H=2048, d_proj=640) and an LN+projection+peephole layer at "
+        f"H=1001 (a ragged split), B in {SCAN_BATCHES}: T=32 from the reset "
+        "state and T=1 (the decode shape) from its carried state, plain and "
+        "masked, bit-exact")
     return err, (arrays, spec, xs_q)
 
 
@@ -376,29 +429,33 @@ def check_gru_scan(dev):
     from repro_torch.models import gru as G
     from repro_torch.models import quant_lstm as QL
 
-    def lens(*v):
-        return torch.tensor(v, dtype=torch.int32, device=dev)
-
+    gen = torch.Generator(device=dev).manual_seed(19)
     err = 0
     for i, variant in enumerate(G.ALL_VARIANTS):
         for d_in, H in ((10, 13), (24, 40), (24, 48)):
             arrays, spec, xs = quantized_gru_layer(
                 variant.use_layernorm, d_in, H, dev, seed=200 + i)
-            xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
-            err = max(err, check_layer(f"GRU {variant.name} H={H}", arrays,
-                                       spec, xs_q, lens(6, 3, 0, 1),
-                                       lens(2, 1, 0, 2), 2))
-    log("[check] quant_gru_scan: 2 variants x 3 widths, from the reset and "
-        "the carried state, plain and masked, bit-exact vs plain")
+            err = max(err, check_layer_batches(
+                f"GRU {variant.name} H={H}", arrays, spec, xs, (6, 3, 0, 1),
+                (2, 1, 0, 2), 2, gen))
+    log("[check] quant_gru_scan: 2 variants x 3 widths x B in "
+        f"{SCAN_BATCHES}, from the reset and the carried state, plain and "
+        "masked, bit-exact vs plain")
+    arrays, spec, xs = quantized_gru_layer(True, 1001, 1001, dev, seed=10,
+                                           calib_T=T)
+    err = max(err, check_layer_batches("H=1001 GRU layer", arrays, spec, xs,
+                                       (T, 17, 1, 0), (1, 0, 1, 0), 1, gen))
     arrays, spec, xs = quantized_gru_layer(True, 2048, 2048, dev, seed=9,
                                            calib_T=T)
+    err = max(err, check_layer_batches("full-width GRU layer", arrays, spec,
+                                       xs, (T, 17, 1, 0), (1, 0, 1, 0), 1,
+                                       gen))
     xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
-    err = max(err, check_layer("full-width GRU layer", arrays, spec, xs_q,
-                               lens(T, 17, 1, 0), lens(1, 0, 1, 0), 1))
     torch.cuda.synchronize()
-    log("[check] quant_gru_scan: full-width LN layer (d_in = H = 2048, "
-        "B=4): T=32 from the reset state and T=1 (the decode shape) from "
-        "its carried state, plain and masked, bit-exact")
+    log("[check] quant_gru_scan: full-width LN layer (d_in = H = 2048) and "
+        f"an LN layer at H=1001 (a ragged split), B in {SCAN_BATCHES}: T=32 "
+        "from the reset state and T=1 (the decode shape) from its carried "
+        "state, plain and masked, bit-exact")
     return err, (arrays, spec, xs_q)
 
 
@@ -858,7 +915,7 @@ def scan_bytes_ops(acc, spec):
     Bx, Tx, GH = acc.shape
     H, d = spec.cfg_d_hidden, spec.d_out
     per_gate = 4 * H * 6 if spec.cell == "lstm" else 3 * H * 6  # P, L, Lb
-    state = B * d + (B * H * 2 if spec.cell == "lstm" else 0)
+    state = Bx * d + (Bx * H * 2 if spec.cell == "lstm" else 0)
     proj = H * d + d * 4 if getattr(spec, "use_projection", False) else 0
     n_bytes = (Bx * Tx * GH * 4 + d * GH + GH * 4 + per_gate + proj
                + 2 * state + Bx * Tx * d)
@@ -1008,7 +1065,8 @@ def check_flash(dev):
     n = 0
     for label, kw in AC.flash_cases(gen):
         got = FA.flash_attention(**kw)
-        want = FA.flash_attention_plain(**kw)
+        want = FA.flash_attention_plain(**kw, **FA.kernel_tiles(
+            kw["q"], kw["k"], kw["v"]))
         dt = kw["q"].dtype
         err[dt] = max(err[dt], AC.check_close(f"flash_attention {label}",
                                               got, want))
@@ -1076,7 +1134,8 @@ def prefill_full_width(dev, repeats=3):
         out = real(q, k, v, **kw)
         layer_err.append(AC.check_close(
             f"prefill layer {len(layer_err)} attention", out,
-            FA.flash_attention_plain(q, k, v, **kw)))
+            FA.flash_attention_plain(q, k, v, **dict(
+                kw, **FA.kernel_tiles(q, k, v)))))
         return out
 
     def plain(q, k, v, **kw):
@@ -1134,7 +1193,7 @@ def prefill_full_width(dev, repeats=3):
     tok_s = sorted(PREFILL_B * PREFILL_S / t for t in secs)
     flash_ms, device_ms = kernel_device_ms(  # both forms of kernel 5
         lambda: prefill_fn(params, batch), ("flash_kernel",
-                                            "flash_mma_kernel"))
+                                            "flash_wgmma_kernel"))
     share = flash_ms / device_ms if device_ms else None
     log(f"[prefill] {cfg.name} B={PREFILL_B} S={PREFILL_S}: prompt tokens/s "
         f"median {tok_s[repeats // 2]:.1f} (min {tok_s[0]:.1f}, max "
@@ -1265,11 +1324,48 @@ class Phases:
 
 
 def kernel_entry(name, mod, launches, err, row, at, rows):
-    return {"name": name, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": launches,
-            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "at": at, "shapes": rows}
+    entry = {"name": name, "route": "cuda", "source": mod.SOURCE,
+             "replaces": mod.REPLACES, "launches": launches,
+             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": row["library_ms"], "at": at, "shapes": rows}
+    return entry
+
+
+def time_barrier(dev, n_barriers=2000, repeats=5):
+    """Device us of one grid barrier of the sequence kernels
+    (``scan::grid_sync``) on a cooperative grid of ``BARRIER_CTAS`` CTAs:
+    a launch of ``n_barriers`` barriers less a launch of none, over
+    ``n_barriers``; the median of ``repeats``."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+
+    fn = build.load("quant_lstm_scan").quant_scan_barrier_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch_ms(n):
+        counter.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        build.check(fn(counter.data_ptr(), n, BARRIER_CTAS, stream),
+                    "quant_scan_barrier_probe")
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e)
+
+    launch_ms(n_barriers)  # warm up
+    per = sorted((launch_ms(n_barriers) - launch_ms(0)) / n_barriers * 1e3
+                 for _ in range(repeats))
+    us = per[repeats // 2]
+    log(f"[time] grid barrier of the sequence kernels: {us:.3f} us on "
+        f"{BARRIER_CTAS} CTAs (median of {repeats}; {per})")
+    return {"ctas": BARRIER_CTAS, "us": us, "repeats_us": per}
 
 
 def main() -> int:
@@ -1335,6 +1431,7 @@ def main() -> int:
     gemm, scan, gru_scan, (cell, ln) = time_kernels(dev, lstm_layer,
                                                     gru_layer)
     flash = time_flash(dev)
+    barrier = time_barrier(dev)
     phases.done("timing")
 
     # the main paths of the slices so far: the engine on both models and
@@ -1374,6 +1471,7 @@ def main() -> int:
                    "serve": [lstm_serve, gru_serve], "engine": engines,
                    "stepwise": stepwise, "prefill": prefill,
                    "transformer_serve": transformer_serve,
+                   "grid_barrier": barrier,
                    "batch": B, "prompt_len": T, "gen": GEN,
                    "phase_s": phases.seconds}, f, indent=1)
     log(smi)

@@ -171,12 +171,16 @@ FP_HD int32_t rsqrt_normalized(int32_t m) {
 }
 
 FP_HD int bit_length64(uint64_t v) {
+#ifdef __CUDA_ARCH__
+  return 64 - __clzll(static_cast<long long>(v));
+#else
   int n = 0;
   while (v) {
     ++n;
     v >>= 1;
   }
   return n;
+#endif
 }
 
 // (m0, shift) with rsqrt(V) * 2**extra_pow2 == m0 / 2**31 * 2**shift.

@@ -2,10 +2,10 @@
 //
 // Replaces the TPU kernel `flash_attention_pallas`
 // (repro/kernels/flash_attention.py, body `_kernel`).  Per (batch, head)
-// and per tile of kBQ query rows, over the key tiles of kBK rows in order:
+// and per tile of q rows, over the key tiles in order:
 //   logits = (q . k^T, float32) * scale, masked to -1e30
 //            (causal: k <= q + q_offset; window: k > q + q_offset - window;
-//             keys past Sk are masked too, so any Sq/Sk is taken)
+//             keys past Sk take no weight, so any Sq/Sk is taken)
 //   m' = max(m, rowmax);  alpha = exp(m - m');  p = exp(logits - m')
 //   l  = l * alpha + rowsum(p);  acc = acc * alpha + bf16_or_f32(p) . v
 //   out = acc / max(l, 1e-30), cast to the input type
@@ -15,31 +15,49 @@
 //
 // What bounds it on an H100: at the prefill shape (B 2, H 32, S 4096,
 // D 128, causal) operations, 2*B*H*S^2*D = 275 GFLOP against 168 MB of
-// q/k/v/o: 0.28 ms at the 989 TFLOP/s of the bf16 tensor cores.  Two forms
-// of one design, one block per (64-row q tile, head, batch) walking 64-row
-// key tiles staged in shared memory, with the running max, denominator
-// and accumulator of each row in registers:
+// q/k/v/o: 0.28 ms at the 989 TFLOP/s of the bf16 tensor cores.  Two forms:
 //  * the tensor-core form (bf16, D 64 or 128, rows 16-byte aligned: every
-//    tensor the model passes) runs both products as mma.sync.m16n8k16 with
-//    float32 accumulation, 4 warps of 16 q rows each (flash_mma_kernel);
-//  * the FMA form (float32, other head widths, unaligned rows) stages the
-//    tiles as float32 and runs the products on the float32 FMA units (67
-//    TFLOP/s), 256 threads each holding a 4 x 4 block of logits
+//    tensor the model passes; flash_wgmma_kernel), shaped after
+//    FlashAttention-3.  One CTA of two warpgroups per (128-row q tile,
+//    head, batch); thread 0 issues TMA copies: the q tile once, then each
+//    128-key K and V tile into a two-stage ring guarded by full/empty
+//    mbarriers, refilling a stage as soon as both warpgroups are done with
+//    it, so the next tile is in flight while the tensor cores work on this
+//    one.  The tensor maps are 4-D (D, heads, S, B) over the tensors' own
+//    strides, so GQA and strided views are read in place; 128-byte
+//    swizzle, a 256-byte bf16 row taking two 64-column boxes; TMA fills
+//    rows past Sq or Sk with zeros.  Each warpgroup owns 64 q rows (with
+//    all of its 255 registers: a separate producer warpgroup, its
+//    registers handed over by setmaxnreg, measured slower, as did
+//    overlapping one tile's softmax with the next tile's products, which
+//    ptxas serializes: PERF.md): S = q k^T is wgmma m64n128k16 with both
+//    operands in shared memory; P is formed from the S accumulators in
+//    registers, rounded to bf16 (the TPU kernel's cast; l sums the
+//    unrounded float32 p) and fed as the register A operand of O += P v,
+//    v being the MN-major shared-memory B operand.  Only key tiles that
+//    cross the causal diagonal, the window edge or Sk run the mask
+//    (tiles::tile_masked); exponentials are exp2f with log2(e) folded into
+//    the scale; causal q tiles are scheduled longest first.
+//  * the FMA form (float32, other head widths, unaligned rows) stages 64 x
+//    64 tiles as float32 and runs the products on the float32 FMA units
+//    (67 TFLOP/s), 256 threads each holding a 4 x 4 block of logits
 //    (flash_kernel).
 // Both skip the key tiles that the mask empties for every row of the q
-// tile (after the diagonal for causal, before the window): the result is
-// the same, since there alpha = 1 and p = 0 (causal) or a later alpha = 0
-// wipes what they added (window).  Asynchronous tile loads (cp.async /
-// TMA), wgmma and a pipelined ring of tiles are the later work.
+// tile (tiles::tile_range, exact; flash_tiles.cuh).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 64;       // key rows per step
-constexpr int kThreads = 256;  // 16 x 16: tx owns columns, ty rows
+constexpr int kBQ = 64;       // FMA form: query rows per block
+constexpr int kBK = 64;       // FMA form: key rows per step
+constexpr int kThreads = 256;  // FMA form: 16 x 16, tx owns columns, ty rows
 constexpr float kNegInf = -1e30f;
 
 struct Args {
@@ -51,6 +69,10 @@ struct Args {
   int B, Sq, Sk, H, KVH, causal, window, q_offset;
   float scale;
 };
+
+__host__ __device__ __forceinline__ tiles::Mask mask_of(const Args& a) {
+  return tiles::Mask{a.Sq, a.Sk, a.causal, a.window, a.q_offset};
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -78,36 +100,6 @@ struct Smem {
   static constexpr size_t kBytes = sizeof(float) * (kQ + kKP + kV);
 };
 
-// does the row at position qp have a key in [0, Sk) under the mask?
-__device__ __forceinline__ bool row_attends(const Args& a, int qp) {
-  const int lo = a.window > 0 ? max(qp - a.window + 1, 0) : 0;
-  const int hi = a.causal ? min(qp, a.Sk - 1) : a.Sk - 1;
-  return lo <= hi;
-}
-
-// The key tiles [kt0, kt1) the q tile at row q0 visits: all of them, or
-// (when every row of the tile has a key; the count of keys a row attends
-// is concave in its position, so the first and last rows decide) those
-// the mask leaves non-empty for some row.
-__device__ __forceinline__ void tile_range(const Args& a, int q0, int& kt0,
-                                           int& kt1) {
-  const int n_tiles = (a.Sk + kBK - 1) / kBK;
-  const int first = q0 + a.q_offset;
-  const int last = min(q0 + kBQ, a.Sq) - 1 + a.q_offset;
-  kt0 = 0;
-  kt1 = n_tiles;
-  if (row_attends(a, first) && row_attends(a, last)) {
-    if (a.causal) kt1 = min(n_tiles, last / kBK + 1);
-    if (a.window > 0) kt0 = max(0, (first - a.window + 1) / kBK);
-  }
-}
-
-// the mask of key position kp for the row at position qp
-__device__ __forceinline__ bool attends(const Args& a, int qp, int kp) {
-  return kp < a.Sk && (!a.causal || kp <= qp) &&
-         (a.window <= 0 || kp > qp - a.window);
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2) flash_kernel(Args a) {
   using S = Smem<D>;
@@ -131,8 +123,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(Args a) {
     Qs[r * S::kRow + d] = s < a.Sq ? to_f32(q[s * a.qss + d]) : 0.f;
   }
 
+  const tiles::Mask mk = mask_of(a);
   int kt0, kt1;
-  tile_range(a, q0, kt0, kt1);
+  tiles::tile_range(mk, q0, kBQ, kBK, &kt0, &kt1);
 
   float acc[4][kCols];
   float m[4], l[4];
@@ -187,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(Args a) {
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = attends(a, qp, k0 + tx + 16 * j) ? s[i][j] * a.scale
+        s[i][j] = tiles::attends(mk, qp, k0 + tx + 16 * j) ? s[i][j] * a.scale
                                                     : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -260,21 +253,127 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(Args a) {
   }
 }
 
-// ---- the tensor-core form (bf16, D = 64 or 128, 16-byte aligned rows) ----
-//
-// One 128-thread block per (q tile, head, batch); warp w owns q rows
-// 16w..16w+15.  The q tile's mma.sync A fragments stay in registers; each
-// key tile is staged in shared memory as bf16 (rows padded by 8 values, so
-// the fragment loads of 8 neighbouring rows fall on distinct banks).
-// S = q k^T and O += P v run as mma.sync.m16n8k16 (bf16 in, float32
-// accumulate); P is formed in registers from the S accumulators, rounded
-// to bf16 as the A operand of the second product (the cast the TPU kernel
-// makes), while the row sums l take the unrounded float32 p.  The online
-// softmax statistics of a thread's two rows (g and g + 8 of its warp's 16)
-// are reduced over the four lanes that share them.
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ---- the tensor-core form (bf16, D = 64 or 128, 16-byte aligned rows) ----
+
+namespace tc {
+
+constexpr int kBQ = 128;      // q rows per CTA: 64 per consumer warpgroup
+constexpr int kBK = 128;      // keys per K/V tile
+constexpr int kStages = 2;    // K/V ring depth
+constexpr int kConsumers = 2;  // warpgroups of 64 q rows
+constexpr int kThreads = 128 * kConsumers;
+constexpr int kBox = 64;      // bf16 columns per TMA box (128 bytes)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// tile byte sizes; a tile is D/64 column blocks of rows x 128 bytes, each
+// block 128-byte swizzled by TMA
+template <int D>
+struct Layout {
+  static constexpr int kQ = kBQ * D * 2;
+  static constexpr int kKV = kBK * D * 2;
+  static constexpr size_t kBytes = kQ + 2 * kStages * kKV + 1024;  // + align
+};
+
+struct Params {
+  void* o;
+  int B, Sq, Sk, H, KVH, causal, window, q_offset, n_qt;
+  float scale_log2;  // scale * log2(e)
+  int q_pos[3], k_pos[3], v_pos[3];  // tensor-map coordinate of (h, s, b)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// spin until the phase of parity `parity` of the barrier has completed; a
+// wait that outlasts any tile by orders of magnitude traps (a launch
+// error) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (spins == (1u << 26)) __trap();
+  }
+}
+
+// one TMA box of the 4-D map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         const int (&c)[4], uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c[0]), "r"(c[1]), "r"(c[2]),
+      "r"(c[3]), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the coordinates of column block col of row s of head h, batch b
+__device__ __forceinline__ void coords(int (&c)[4], const int (&pos)[3], int col,
+                                       int h, int s, int b) {
+  c[0] = col;
+  c[pos[0]] = h;
+  c[pos[1]] = s;
+  c[pos[2]] = b;
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (all in 16-byte units)
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(1) << 62;  // SWIZZLE_128B
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving uses of wgmma operands across the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -282,199 +381,372 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x 128 float32, the accumulator fragment) (+)= A (64 x 16 bf16,
+// shared memory, K-major) * B (16 x 128, shared memory, K-major); d is
+// overwritten when scale_d is 0
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// four 8 x 8 bf16 matrices, transposed: the B fragments of two n-tiles
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// d (64 x 128 float32) += A (64 x 16 bf16, registers) * B (16 x 128 bf16,
+// shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64 float32) += A (64 x 16 bf16, registers) * B (16 x 64 bf16,
+// shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 template <int D>
-struct MmaSmem {
-  static constexpr int kRow = D + 8;  // bf16 values per staged row
-  static constexpr size_t kBytes = sizeof(__nv_bfloat16) * 3 * kBQ * kRow;
-};
-
-// one tile of rows [r0, r0 + 64) of a (S, D) bf16 matrix into shared
-// memory, 16 bytes a load; rows past n are zeros
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long stride, int r0, int n) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kBQ * kChunks; c += 128) {
-    const int r = c / kChunks, d = (c % kChunks) * 8, s = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (s < n) v = *reinterpret_cast<const uint4*>(src + s * stride + d);
-    *reinterpret_cast<uint4*>(dst + r * MmaSmem<D>::kRow + d) = v;
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, desc_b);
+  } else {
+    wgmma_rs_n64(d, a, desc_b);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(128) flash_mma_kernel(Args a) {
-  constexpr int kRow = MmaSmem<D>::kRow;
-  constexpr int kSteps = D / 16;  // k-steps of the q k^T product
-  constexpr int kTiles = D / 8;   // n-tiles of the output
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* Ks = Qs + kBQ * kRow;
-  __nv_bfloat16* Vs = Ks + kBK * kRow;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, Params a) {
+  using L = Layout<D>;
+  constexpr int kCB = D / kBox;  // column blocks of a row
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_k[kStages], bar_v[kStages],
+      bar_empty[kStages];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Qs = base;
+  uint8_t* Ks = Qs + L::kQ;
+  uint8_t* Vs = Ks + kStages * L::kKV;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma groupID, thread in group
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  // the q tile of this CTA: heads fastest, so the heads sharing a KV head
+  // run side by side; causal tiles longest (last) first
+  const int h = blockIdx.x % a.H;
+  const int rest = blockIdx.x / a.H;
+  const int b = rest % a.B;
+  int qt = rest / a.B;
+  if (a.causal) qt = a.n_qt - 1 - qt;
+  const int q0 = qt * kBQ;
   const int kvh = h / (a.H / a.KVH);
-  using bf16 = __nv_bfloat16;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
-
-  stage_rows<D>(Qs, q, a.qss, q0, a.Sq);
-  __syncthreads();
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qa[kSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const bf16* row = Qs + r0 * kRow + 16 * ks + 2 * t;
-    qa[ks][0] = ld_u32(row);
-    qa[ks][1] = ld_u32(row + 8 * kRow);
-    qa[ks][2] = ld_u32(row + 8);
-    qa[ks][3] = ld_u32(row + 8 * kRow + 8);
-  }
-
+  const tiles::Mask mk{a.Sq, a.Sk, a.causal, a.window, a.q_offset};
   int kt0, kt1;
-  tile_range(a, q0, kt0, kt1);
-  const int qp0 = q0 + r0 + a.q_offset, qp1 = qp0 + 8;
-  float o[kTiles][4];
-#pragma unroll
-  for (int n = 0; n < kTiles; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  tiles::tile_range(mk, q0, kBQ, kBK, &kt0, &kt1);
+  const int n_kt = kt1 - kt0;
 
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the last step's K and V reads are done
-    stage_rows<D>(Ks, k, a.kss, k0, a.Sk);
-    stage_rows<D>(Vs, v, a.vss, k0, a.Sk);
-    __syncthreads();
-
-    float s[8][4];  // 16 rows x 64 keys: n-tile j holds keys 8j..8j+7
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* row = Ks + (8 * j + g) * kRow + 16 * ks + 2 * t;
-        mma_bf16(s[j], qa[ks], ld_u32(row), ld_u32(row + 8));
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&bar_empty[s], 128 * kConsumers);
     }
-
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kp = k0 + 8 * j + 2 * t + e;
-        s[j][e] = attends(a, qp0, kp) ? s[j][e] * a.scale : kNegInf;
-        s[j][2 + e] = attends(a, qp1, kp) ? s[j][2 + e] * a.scale : kNegInf;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a row
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-    const float alpha0 = expf(m0 - n0), alpha1 = expf(m1 - n1);
-    float sum0 = 0.f, sum1 = 0.f;
-    uint32_t pa[4][4];  // P as the A operand, k-step kk = keys 16kk..16kk+15
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p00 = expf(s[j][0] - n0), p01 = expf(s[j][1] - n0);
-      const float p10 = expf(s[j][2] - n1), p11 = expf(s[j][3] - n1);
-      sum0 += p00 + p01;
-      sum1 += p10 + p11;
-      pa[j / 2][(j % 2) * 2] = pack_bf16(p00, p01);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p10, p11);
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    l0 = l0 * alpha0 + sum0;
-    l1 = l1 * alpha1 + sum1;
-    m0 = n0;
-    m1 = n1;
-#pragma unroll
-    for (int n = 0; n < kTiles; ++n) {
-      o[n][0] *= alpha0;
-      o[n][1] *= alpha0;
-      o[n][2] *= alpha1;
-      o[n][3] *= alpha1;
-    }
-
-    // lanes 0-7 / 8-15 address keys 0-7 / 8-15 of the k-step at column n,
-    // lanes 16-31 the same keys at column n + 1
-    const int key = (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int col = (lane >> 4) * 8;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kTiles; n += 2) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, Vs + (16 * kk + key) * kRow + 8 * n + col);
-        mma_bf16(o[n], pa[kk], vb[0], vb[1]);
-        mma_bf16(o[n + 1], pa[kk], vb[2], vb[3]);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  bf16* out = static_cast<bf16*>(a.o);
-  const int s0 = q0 + r0, s1 = s0 + 8;
+  const int wg = threadIdx.x / 128;
+  // thread 0 feeds the ring: the q tile and the first kStages K/V tiles
+  // now, each later tile as soon as both warpgroups are done with the
+  // stage it reuses
+  auto load_kv = [&](int i) {
+    const int s = i % kStages, k0 = (kt0 + i) * kBK;
+    int c[4];
+    mbar_expect_tx(&bar_k[s], L::kKV);
+    for (int cb = 0; cb < kCB; ++cb) {
+      coords(c, a.k_pos, cb * kBox, kvh, k0, b);
+      tma_load(Ks + s * L::kKV + cb * kBK * 128, &tm_k, c, &bar_k[s]);
+    }
+    mbar_expect_tx(&bar_v[s], L::kKV);
+    for (int cb = 0; cb < kCB; ++cb) {
+      coords(c, a.v_pos, cb * kBox, kvh, k0, b);
+      tma_load(Vs + s * L::kKV + cb * kBK * 128, &tm_v, c, &bar_v[s]);
+    }
+  };
+  if (threadIdx.x == 0) {
+    int c[4];
+    mbar_expect_tx(&bar_q, L::kQ);
+    for (int cb = 0; cb < kCB; ++cb) {
+      coords(c, a.q_pos, cb * kBox, h, q0, b);
+      tma_load(Qs + cb * kBQ * 128, &tm_q, c, &bar_q);
+    }
+    for (int i = 0; i < kStages && i < n_kt; ++i) load_kv(i);
+  }
+  {
+    // ---- consumer warpgroup wg: q rows [64 wg, 64 wg + 64) of the tile ----
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int r0 = wg * 64 + warp * 16 + g;  // this thread's rows r0, r0 + 8
+    const int qp0 = q0 + r0 + a.q_offset, qp1 = qp0 + 8;
+    const int qp_lo = q0 + wg * 64 + a.q_offset, qp_hi = qp_lo + 63;
+    const float sl2 = a.scale_log2;
+
+    float o[D / 2];
 #pragma unroll
-  for (int n = 0; n < kTiles; ++n) {
-    const int d = 8 * n + 2 * t;
-    if (s0 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + ((static_cast<size_t>(b) * a.Sq + s0) * a.H + h) * D + d) =
-          __floats2bfloat162_rn(o[n][0] / d0, o[n][1] / d0);
-    if (s1 < a.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + ((static_cast<size_t>(b) * a.Sq + s1) * a.H + h) * D + d) =
-          __floats2bfloat162_rn(o[n][2] / d1, o[n][3] / d1);
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+    mbar_wait(&bar_q, 0);
+    for (int i = 0; i < n_kt; ++i) {
+      const int s = i % kStages;
+      const uint32_t phase = (i / kStages) & 1;
+      const int k0 = (kt0 + i) * kBK;
+      const uint8_t* Kt = Ks + s * L::kKV;
+      const uint8_t* Vt = Vs + s * L::kKV;
+
+      // S = q k^T: 64 rows x 128 keys, D / 16 k-steps of 32 bytes each
+      float sacc[64];
+#pragma unroll
+      for (int i2 = 0; i2 < 64; ++i2) sacc[i2] = 0.f;  // overwritten: scale_d 0
+      mbar_wait(&bar_k[s], phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int cb = kk / 4, kin = (kk % 4) * 32;
+        wgmma_ss_n128(sacc,
+                      make_desc(Qs + cb * kBQ * 128 + wg * 64 * 128 + kin, 16,
+                                1024),
+                      make_desc(Kt + cb * kBK * 128 + kin, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sacc);
+
+      // logits in log2 units; the mask only on the tiles that need it
+      // (keys past Sk take no weight at all: -inf)
+#pragma unroll
+      for (int i2 = 0; i2 < 64; ++i2) sacc[i2] *= sl2;
+      if (tiles::tile_masked(mk, qp_lo, qp_hi, k0, kBK)) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kp = k0 + 8 * j + 2 * t4 + e;
+            if (kp >= a.Sk) {
+              sacc[4 * j + e] = -INFINITY;
+              sacc[4 * j + 2 + e] = -INFINITY;
+            } else {
+              if (!tiles::attends(mk, qp0, kp)) sacc[4 * j + e] = kNegInf;
+              if (!tiles::attends(mk, qp1, kp)) sacc[4 * j + 2 + e] = kNegInf;
+            }
+          }
+        }
+      }
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+      const float alpha0 = exp2f(m0 - n0), alpha1 = exp2f(m1 - n1);
+      float sum0 = 0.f, sum1 = 0.f;
+      uint32_t pa[8][4];  // P as the A operand; k-step kk = keys 16kk..16kk+15
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float p00 = exp2f(sacc[4 * j] - n0);
+        const float p01 = exp2f(sacc[4 * j + 1] - n0);
+        const float p10 = exp2f(sacc[4 * j + 2] - n1);
+        const float p11 = exp2f(sacc[4 * j + 3] - n1);
+        sum0 += p00 + p01;
+        sum1 += p10 + p11;
+        pa[j / 2][(j % 2) * 2] = pack_bf16(p00, p01);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p10, p11);
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+      m0 = n0;
+      m1 = n1;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        o[4 * c] *= alpha0;
+        o[4 * c + 1] *= alpha0;
+        o[4 * c + 2] *= alpha1;
+        o[4 * c + 3] *= alpha1;
+      }
+
+      // O += P v: 8 k-steps of 16 keys; v is MN-major (D contiguous), its
+      // 64-column blocks kBK * 128 bytes apart
+      mbar_wait(&bar_v[s], phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_rs<D>(o, pa[kk], make_desc(Vt + kk * 16 * 128, kBK * 128, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(&bar_empty[s]);
+      if (threadIdx.x == 0 && i + kStages < n_kt) {
+        mbar_wait(&bar_empty[s], phase);
+        load_kv(i + kStages);
+      }
+    }
+
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+    const int s0 = q0 + r0, s1 = s0 + 8;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int d = 8 * c + 2 * t4;
+      if (s0 < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + ((static_cast<size_t>(b) * a.Sq + s0) * a.H + h) * D + d) =
+            __floats2bfloat162_rn(o[4 * c] / d0, o[4 * c + 1] / d0);
+      if (s1 < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + ((static_cast<size_t>(b) * a.Sq + s1) * a.H + h) * D + d) =
+            __floats2bfloat162_rn(o[4 * c + 2] / d1, o[4 * c + 3] / d1);
+    }
   }
 }
 
+// ---- host: tensor maps and the launch ----
+
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver library the process already holds
+EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// The 4-D map of a (B, S, heads, D) bf16 tensor with element strides
+// (sb, ss, sh): axis 0 is D, axes 1-3 are (heads, S, B) ordered by stride
+// (extent-1 axes last), which `pos` records for the kernel's coordinates.
+// Boxes of 64 columns x `rows` rows, 128-byte swizzle, zero fill past the
+// edges.
+bool make_map(CUtensorMap* map, int (&pos)[3], const void* ptr, int D,
+              int heads, int S, int B, long long sh, long long ss,
+              long long sb, int rows) {
+  const EncodeFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  long long ext[3] = {heads, S, B}, str[3] = {sh, ss, sb};
+  int order[3] = {0, 1, 2};
+  auto key = [&](int i) {  // extent-1 axes sort last
+    return ext[i] == 1 ? (1LL << 62) : str[i];
+  };
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (key(order[j]) < key(order[i])) {
+        const int t = order[i];
+        order[i] = order[j];
+        order[j] = t;
+      }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), 1, 1, 1};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {kBox, 1, 1, 1};
+  long long span = static_cast<long long>(D);  // elements under the axis
+  for (int i = 0; i < 3; ++i) {
+    const int ax = order[i];
+    pos[ax] = i + 1;
+    dims[i + 1] = static_cast<cuuint64_t>(ext[ax]);
+    long long st = ext[ax] == 1 ? span : str[ax];  // any stride serves
+    strides[i] = static_cast<cuuint64_t>(st * 2);
+    span = st * ext[ax] > span ? st * ext[ax] : span;
+    box[i + 1] = ax == 1 ? rows : 1;
+  }
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
-int launch_mma(const Args& a, cudaStream_t stream) {
-  const size_t smem = MmaSmem<D>::kBytes;
+int launch(const Args& a, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  Params p{a.o, a.B, a.Sq, a.Sk, a.H, a.KVH, a.causal, a.window, a.q_offset,
+           (a.Sq + kBQ - 1) / kBQ, a.scale * kLog2e};
+  if (!make_map(&mq, p.q_pos, a.q, D, a.H, a.Sq, a.B, a.qsh, a.qss, a.qsb,
+                kBQ) ||
+      !make_map(&mk, p.k_pos, a.k, D, a.KVH, a.Sk, a.B, a.ksh, a.kss, a.ksb,
+                kBK) ||
+      !make_map(&mv, p.v_pos, a.v, D, a.KVH, a.Sk, a.B, a.vsh, a.vss, a.vsb,
+                kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
-  flash_mma_kernel<D><<<grid, 128, smem, stream>>>(a);
+  const long long grid = static_cast<long long>(p.n_qt) * a.H * a.B;
+  flash_wgmma_kernel<D><<<static_cast<unsigned>(grid), kThreads, smem,
+                          stream>>>(mq, mk, mv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-byte loads of every staged row: the bases and the strides of the
-// batch, sequence and head axes are multiples of 8 bf16 values
+}  // namespace tc
+
+// TMA reads every row in place: the bases and the strides of the batch,
+// sequence and head axes are multiples of 8 bf16 values (16 bytes)
 bool rows_aligned(const Args& a) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) |
                          reinterpret_cast<uintptr_t>(a.k) |
@@ -510,7 +782,8 @@ int launch_dim(const Args& a, int D, cudaStream_t stream) {
 
 // Plain C entry point (bound with ctypes).  dtype 0 = float32, 1 = bfloat16.
 // Strides are in elements; the last axis of q, k, v is contiguous and the
-// output is a contiguous (B, Sq, H, D).  Returns cudaGetLastError().
+// output is a contiguous (B, Sq, H, D).  Returns cudaGetLastError() (or
+// cudaErrorInvalidValue where a tensor map cannot be made).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
@@ -524,7 +797,7 @@ extern "C" int flash_attention_launch(
                scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && (D == 64 || D == 128) && rows_aligned(a))
-    return D == 64 ? launch_mma<64>(a, st) : launch_mma<128>(a, st);
+    return D == 64 ? tc::launch<64>(a, st) : tc::launch<128>(a, st);
   return dtype == 1 ? launch_dim<__nv_bfloat16>(a, D, st)
                     : launch_dim<float>(a, D, st);
 }

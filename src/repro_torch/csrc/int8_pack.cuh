@@ -1,6 +1,7 @@
-// Byte-level helpers for int8 dot products with __dp4a, shared by the two
-// CUDA kernels.  A row-major int8 matrix stores 4 consecutive COLUMNS in a
-// 32-bit word, while __dp4a wants 4 consecutive K values of one column:
+// Byte-level helpers for int8 dot products, shared by the int8 GEMM and the
+// sequence kernels' weight loader.  A row-major int8 matrix stores 4
+// consecutive COLUMNS in a 32-bit word, while __dp4a (and the B operand of
+// mma.sync m16n8k32) wants 4 consecutive K values of one column:
 // `transpose4` turns the words of 4 consecutive rows into one packed word
 // per column with 8 byte permutes.  Host fallbacks of __byte_perm and
 // __dp4a keep the header valid host C++, so the packing can be checked

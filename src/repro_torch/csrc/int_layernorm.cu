@@ -14,7 +14,7 @@
 // each way per element) plus L and b: bytes, about 0.01 us at B = 4,
 // n = 2048, far below the cost of one launch, so a launch is the real
 // floor.  One thread block per row: each thread sums its strided elements,
-// the block reduces through warp shuffles (`scan::ln_stats`, the statistics
+// the block reduces through warp shuffles (`blk::ln_stats`, the statistics
 // the sequence kernels use per gate), one thread forms the rsqrt
 // multiplier, and every thread normalises its elements
 // (`fp::layernorm_apply`, the same device function as the sequence kernels).
@@ -22,17 +22,17 @@
 #include <stdint.h>
 
 #include "fixedpoint.cuh"
-#include "recurrent_scan.cuh"
+#include "block_ln.cuh"
 
 namespace {
 
-using scan::kThreads;
+using blk::kThreads;
 
 __global__ void __launch_bounds__(kThreads) int_layernorm_kernel(
     const int16_t* __restrict__ q, const int16_t* __restrict__ lw,
     const int32_t* __restrict__ lb, int16_t* __restrict__ out, int n,
     int32_t out_m0, int32_t out_shift) {
-  __shared__ scan::LNStats st;
+  __shared__ blk::LNStats st;
   const int16_t* row = q + (size_t)blockIdx.x * n;
   int16_t* dst = out + (size_t)blockIdx.x * n;
   long long s[1] = {0}, sq[1] = {0};
@@ -41,7 +41,7 @@ __global__ void __launch_bounds__(kThreads) int_layernorm_kernel(
     s[0] += v;
     sq[0] += v * v;
   }
-  scan::ln_stats(s, sq, n, 1, &st);
+  blk::ln_stats(s, sq, n, 1, &st);
   for (int j = threadIdx.x; j < n; j += kThreads) {
     dst[j] = fp::layernorm_apply(row[j], n, st.sum[0], st.deg[0], st.m0[0],
                                  st.shift[0], lw[j], lb[j], out_m0, out_shift);

@@ -17,17 +17,17 @@
 // element per thread per pass) for every case but the in-fusion LN, and,
 // for peephole + LN, one thread block per row that keeps the row's o gate in
 // shared memory while the block reduces its LN statistics
-// (`scan::ln_stats`), as the TPU kernel pins its block to the full H axis.
+// (`blk::ln_stats`), as the TPU kernel pins its block to the full H axis.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fixedpoint.cuh"
 #include "lstm_cell.cuh"
-#include "recurrent_scan.cuh"
+#include "block_ln.cuh"
 
 namespace {
 
-using scan::kThreads;
+using blk::kThreads;
 
 struct CellParams {
   const int16_t* i;  // (B, H), null under CIFG
@@ -75,7 +75,7 @@ __global__ void quant_lstm_cell_kernel(CellParams p) {
 // for the LN statistics.
 __global__ void __launch_bounds__(kThreads) quant_lstm_cell_ln_kernel(CellParams p) {
   extern __shared__ int16_t o_row[];  // [H]
-  __shared__ scan::LNStats st;
+  __shared__ blk::LNStats st;
   const size_t base = (size_t)blockIdx.x * p.H;
   long long s[1] = {0}, sq[1] = {0};
   for (int j = threadIdx.x; j < p.H; j += kThreads) {
@@ -85,7 +85,7 @@ __global__ void __launch_bounds__(kThreads) quant_lstm_cell_ln_kernel(CellParams
     s[0] += o16;
     sq[0] += (long long)o16 * o16;
   }
-  scan::ln_stats(s, sq, p.H, 1, &st);
+  blk::ln_stats(s, sq, p.H, 1, &st);
   for (int j = threadIdx.x; j < p.H; j += kThreads) {
     const int16_t o16 = fp::layernorm_apply(
         o_row[j], p.H, st.sum[0], st.deg[0], st.m0[0], st.shift[0], p.lw_o[j],

@@ -1,4 +1,4 @@
-// Persistent integer LSTM sequence kernel: the whole recurrent stage of one
+// Cooperative integer LSTM sequence kernel: the whole recurrent stage of one
 // layer in ONE launch, with the time loop inside the kernel.
 //
 // Replaces the TPU kernel `quant_recurrent_seq_scan_pallas`
@@ -17,18 +17,40 @@
 // `valid_len`, row b is frozen for t >= valid_len[b] and still writes its
 // unchanged h to ys[b, t], as the TPU kernel does.
 //
-// What bounds it on an H100: every step re-reads R_cat (d_out x 4H int8,
-// 5.2 MB at full width) and W_proj (H x d_proj, 1.3 MB), which no SM's
-// shared memory can hold, and the steps are sequential.  The ideal is
-// bytes: the weights once per step from L2.  This first design gives each
-// batch row its own thread block (rows are independent), so there is no
-// grid-wide barrier: h, c, m, the row's 4H int32 gate accumulators and the
-// LayerNorm statistics stay in shared memory for the whole sweep, and each
-// step streams R_cat and W_proj with coalesced 16-byte loads, several in
-// flight per thread, multiplied 4 rows at a time with __dp4a.  It reads
-// the weights B times per step and uses only B SMs; splitting gate columns
-// across blocks with a grid barrier for LayerNorm and projection is the
-// later performance design.
+// What bounds it on an H100: the steps are sequential, and each reads the
+// layer's recurrent weights, R_cat (d_out x 4H int8, 5.2 MB at full width)
+// and W_proj (H x d_proj, 1.3 MB): more than one SM holds, less than the
+// card's 132 SMs hold together.  So the weights stay in shared memory for
+// the whole launch, split by hidden unit: one cooperative grid of NB <= 132
+// CTAs (recurrent_scan.cuh's plan: u = 16 units a CTA at full width, 128
+// CTAs, 80-135 KB each), loaded once (6.5 MB at 3.35 TB/s: ~2 us), each
+// CTA serving every batch row, so a step reads each weight once from
+// shared memory and uses it B times, on the int8 tensor cores (mma.sync
+// m16n8k32).  The rows pass in groups of the plan's rg (all B rows where
+// they fit beside the weights), so B is not bounded by shared memory.  A
+// step is then bound by its grid barriers (2 or 3 a group, ~1 us each on
+// the card; PERF.md) and the latency of its phases, per group:
+//   1. every CTA reads the group's full h_{t-1} (rg x d_out) from a
+//      double-buffered global h into shared memory and forms its G u gate
+//      columns while its slice of acc_x is copied in (cp.async), then
+//      rescales and saturates (peephole i/f on its own c);
+//   2. with LayerNorm, it adds its units' partial sum and sum of squares
+//      per (row, gate) into int64 totals with atomics; barrier; each CTA
+//      derives the row's LayerNorm multipliers from the totals itself;
+//   3. the gates' activations (one a thread), the cell on its units; a
+//      peephole o gate under LayerNorm has its own totals and barrier;
+//   4. with projection, each CTA writes its units' m into a double-buffered
+//      global m; barrier; every CTA reads the group's full m and forms its
+//      columns of the projected h (W_proj[:, its columns] in its shared
+//      memory) into the global h and ys.  Without projection, each CTA
+//      writes its units' m (= h) there directly.
+// One barrier after the last group publishes the step's h.  A CTA's c
+// stays in shared memory where one group holds every row, else in c_out
+// (its own units: no other CTA reads them) between groups.
+// The LayerNorm totals rotate over three buffers, the one for step t + 1
+// zeroed during step t.  int64 sums are associative and commutative, so
+// atomics in any order, like the tensor cores' exact int32 sums, give
+// results bit-identical to the plain version (kernels/ref.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,11 +60,8 @@
 
 namespace {
 
-using scan::kPartInts;
+using scan::kSlots;
 using scan::kThreads;
-using scan::LNStats;
-using scan::ln_stats;
-using scan::matvec;
 
 struct ScanParams {
   const int32_t* acc_x;  // (B, T, G*H): hoisted input accumulator
@@ -59,7 +78,8 @@ struct ScanParams {
   int8_t* ys;                // (B, T, d_out)
   int8_t* h_out;
   int16_t* c_out;
-  int T, H, d_out, G;
+  unsigned char* ws;  // zeroed workspace (scan::Plan::ws bytes)
+  int B, T, H, d_out, G;
   int use_ln, use_proj, use_ph, cifg;
   int slot_i, slot_f, slot_z, slot_o;  // column block of each gate (-1: none)
   int eff_x[4][2], eff_h[4][2], eff_c[4][2], ln_out[4][2];
@@ -67,144 +87,322 @@ struct ScanParams {
   int zp_m, zp_h_out, cell_int_bits;
 };
 
-__global__ void __launch_bounds__(kThreads, 1) quant_lstm_scan_kernel(ScanParams p) {
+__global__ void __launch_bounds__(kThreads, 1)
+    quant_lstm_scan_kernel(ScanParams p, scan::Plan pl) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ LNStats st;
-  const int GH = p.G * p.H;
-  const int H = p.H;
-  int32_t* gates = reinterpret_cast<int32_t*>(smem);     // [G*H]
-  int32_t* part = gates + GH;                             // [kPartInts]
-  int16_t* c = reinterpret_cast<int16_t*>(part + kPartInts);     // [H]
-  int8_t* h = reinterpret_cast<int8_t*>(c + ((H + 7) & ~7));     // [d_out]
-  int8_t* m = h + ((p.d_out + 15) & ~15);                        // [H]
+  const int n = blockIdx.x, tid = threadIdx.x;
+  const int B = p.B, T = p.T, H = p.H, G = p.G, d_out = p.d_out;
+  const int u = pl.u, C = pl.C, hp = pl.hp, mp = pl.mp, wc = pl.wc, rg = pl.rg;
+  const bool one = rg >= B;  // one group: c stays in shared memory
+  const int unit0 = n * u, un = min(u, H - unit0);
+  const int pc0 = n * wc, pcn = max(0, min(wc, d_out - pc0));  // W_proj columns
+  const int GH = G * H;
+  uint32_t* W4 = reinterpret_cast<uint32_t*>(smem + pl.off_w);
+  uint32_t* Wp4 = reinterpret_cast<uint32_t*>(smem + pl.off_wp);
+  int8_t* hs = reinterpret_cast<int8_t*>(smem + pl.off_h);
+  int8_t* mfull = reinterpret_cast<int8_t*>(smem + pl.off_m);
+  int32_t* part = reinterpret_cast<int32_t*>(smem + pl.off_part);
+  int32_t* gates = reinterpret_cast<int32_t*>(smem + pl.off_gates);
+  int16_t* cs = reinterpret_cast<int16_t*>(smem + pl.off_c);
+  int32_t* macc = reinterpret_cast<int32_t*>(smem + pl.off_ms);
+  int32_t* ln = reinterpret_cast<int32_t*>(smem + pl.off_ln);
+  int32_t* axs = reinterpret_cast<int32_t*>(smem + pl.off_ax);
+  int16_t* cz = reinterpret_cast<int16_t*>(smem + pl.off_cz);  // c_new
+  unsigned int* bar = reinterpret_cast<unsigned int*>(p.ws);
+  long long* stats = reinterpret_cast<long long*>(p.ws + pl.ws_stats);
+  int8_t* mbuf = reinterpret_cast<int8_t*>(p.ws + pl.ws_mbuf);
+  int8_t* hbuf = reinterpret_cast<int8_t*>(p.ws + pl.ws_hbuf);
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int j = tid; j < p.d_out; j += kThreads) h[j] = p.h0[(size_t)b * p.d_out + j];
-  for (int j = tid; j < H; j += kThreads) c[j] = p.c0[(size_t)b * H + j];
+  // the slice of the weights, once; the first group's h0; c0 into shared
+  // memory (one group) or, past one group, into c_out, where this CTA
+  // keeps its units' c between groups
+  scan::load_gate_columns(W4, pl.gate, p.R, d_out, H, G, u, un, unit0);
+  scan::load_h0(hs, p.h0, min(rg, B), d_out, hp);
+  if (p.use_proj) {  // W_proj[:, pc0 .. pc0 + pcn) as words of 4 rows
+    const int ws = pl.proj.ws;
+    for (int idx = tid; idx < (pl.proj.k32 / 4) * ws; idx += kThreads) {
+      const int i4 = idx / ws, c = idx % ws;
+      uint32_t word = 0;
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * i4 + e;
+        if (c < pcn && i < H)
+          word |= static_cast<uint32_t>(static_cast<uint8_t>(
+                      p.W_proj[(size_t)i * d_out + pc0 + c]))
+                  << (8 * e);
+      }
+      Wp4[idx] = word;
+    }
+  }
+  for (int idx = tid; idx < B * u; idx += kThreads) {
+    const int b = idx / u, j = idx % u;
+    if (one)
+      cs[idx] = j < un ? p.c0[(size_t)b * H + unit0 + j] : 0;
+    else if (j < un)
+      p.c_out[(size_t)b * H + unit0 + j] = p.c0[(size_t)b * H + unit0 + j];
+  }
+  int maxlen = 0;
+  for (int b = 0; b < B; ++b) {
+    const int v = p.valid_len ? p.valid_len[b] : T;
+    maxlen = v > maxlen ? v : maxlen;
+  }
+  const int steps = min(maxlen, T);  // the live steps; h then stays
   __syncthreads();
 
-  const int vlen = p.valid_len ? p.valid_len[b] : p.T;
-  // with a peephole the o gate is finished after c_new (and LN'd there)
-  const int slot_o_late = p.use_ph ? p.slot_o : -1;
+  unsigned int target = 0;
+  const unsigned int nb = gridDim.x;
+  const int slot_o_late = p.use_ph ? p.slot_o : -1;  // finished after c_new
+  const int yc = (d_out + pl.nb - 1) / pl.nb;        // h columns a CTA copies
+  const int col0 = n * yc, col1 = min(d_out, col0 + yc);
+  const int n_st = B * kSlots * 2;
+  // h after `steps` steps (other CTAs' writes: read from L2)
+  auto h_final = [&](int b, int col) -> int8_t {
+    return steps == 0 ? p.h0[(size_t)b * d_out + col]
+                      : __ldcg(hbuf + (size_t)(steps & 1) * B * hp + (size_t)b * hp + col);
+  };
 
-  for (int t = 0; t < p.T; ++t) {
-    int8_t* ys_t = p.ys + ((size_t)b * p.T + t) * p.d_out;
-    if (t >= vlen) {  // frozen row: state unchanged, leaf 0 still emitted
-      for (int j = tid; j < p.d_out; j += kThreads) ys_t[j] = h[j];
+  for (int t = 0; t < T; ++t) {
+    if (t >= steps) {  // every row frozen: ys[:, t] = h, a share of columns each
+      for (int idx = tid; idx < B * (col1 - col0); idx += kThreads) {
+        const int b = idx / (col1 - col0), col = col0 + idx % (col1 - col0);
+        p.ys[((size_t)b * T + t) * d_out + col] = h_final(b, col);
+      }
       continue;
     }
-    const int32_t* ax = p.acc_x + ((size_t)b * p.T + t) * GH;
+    const int cur = t % 3, nxt = (t + 1) % 3;
+    long long* st = stats + cur * n_st;
+    // zero step t + 1's totals (read last in step t - 2)
+    for (int idx = n * kThreads + tid; idx < n_st; idx += nb * kThreads)
+      stats[nxt * n_st + idx] = 0;
+    const int8_t* hb_cur = hbuf + (t & 1) * B * hp;  // h_{t-1} for t >= 1
+    int8_t* mb_next = mbuf + ((t + 1) & 1) * B * mp;
+    int8_t* hb_next = hbuf + ((t + 1) & 1) * B * hp;
 
-    // 1. recurrent product h @ R_cat + fold_hb_cat into `gates`
-    matvec(h, p.d_out, p.R, GH, p.fold_hb, gates, part);
-    __syncthreads();
-
-    // 2. gate pre-activations (each thread owns hidden units j)
-    long long s[4] = {0, 0, 0, 0}, q[4] = {0, 0, 0, 0};
-    for (int j = tid; j < H; j += kThreads) {
-      const int32_t c_old = c[j];
-      for (int k = 0; k < p.G; ++k) {
-        const int idx = k * H + j;
-        int32_t g = fp::sat_add(fp::mbqm(ax[idx], p.eff_x[k][0], p.eff_x[k][1]),
-                                fp::mbqm(gates[idx], p.eff_h[k][0], p.eff_h[k][1]));
+    // the rows in groups of rg; r is a row of the group, b = g0 + r the
+    // batch row
+    for (int g0 = 0; g0 < B; g0 += rg) {
+      const int nr = min(rg, B - g0);
+      // 1. the group's h_{t-1} (and, past one group, its c); gate columns
+      //    of h_{t-1} @ R_cat (this step's slice of acc_x copied in
+      //    meanwhile), then the pre-activations
+      for (int idx = tid; idx < nr * C; idx += kThreads) {
+        const int b = g0 + idx / C, c = idx % C, j = c % u;
+        if (j < un)
+          scan::cp_async4(&axs[idx],
+                          &p.acc_x[((size_t)b * T + t) * GH + (c / u) * H + unit0 + j]);
+      }
+      if (t == 0) {
+        if (g0 > 0) scan::load_h0(hs, p.h0 + (size_t)g0 * d_out, nr, d_out, hp);
+      } else {
+        scan::load_rows(hs, hb_cur + (size_t)g0 * hp, nr, hp);  // padding 0
+      }
+      if (!one)
+        for (int idx = tid; idx < nr * u; idx += kThreads) {
+          const int b = g0 + idx / u, j = idx % u;
+          cs[idx] = j < un ? p.c_out[(size_t)b * H + unit0 + j] : 0;
+        }
+      __syncthreads();
+      scan::matvec(hs, nr, hp, W4, pl.gate, C, part, gates);
+      scan::cp_async_wait_all();
+      __syncthreads();
+      for (int idx = tid; idx < nr * C; idx += kThreads) {
+        const int r = idx / C, c = idx % C, k = c / u, j = c % u;
+        if (j >= un) continue;
+        const int col = k * H + unit0 + j;
+        const int32_t acc_h = fp::wrap32((int64_t)gates[idx] + p.fold_hb[col]);
+        int32_t g = fp::sat_add(fp::mbqm(axs[idx], p.eff_x[k][0], p.eff_x[k][1]),
+                                fp::mbqm(acc_h, p.eff_h[k][0], p.eff_h[k][1]));
         if (k == slot_o_late) {  // int32 pre-peephole o accumulator
           gates[idx] = g;
           continue;
         }
         if (p.use_ph && k != p.slot_z) {
-          g = fp::sat_add(g, fp::mbqm((int32_t)p.P[k][j] * c_old,
+          g = fp::sat_add(g, fp::mbqm((int32_t)p.P[k][unit0 + j] * cs[r * u + j],
                                       p.eff_c[k][0], p.eff_c[k][1]));
         }
-        const int32_t g16 = fp::sat16(g);
-        gates[idx] = g16;
-        s[k] += g16;
-        q[k] += (long long)g16 * g16;
+        gates[idx] = fp::sat16(g);
       }
-    }
-    if (p.use_ln) {
-      ln_stats(s, q, H, p.G, &st);
-      for (int j = tid; j < H; j += kThreads) {
-        for (int k = 0; k < p.G; ++k) {
+      __syncthreads();
+
+      // 2. LayerNorm over the H units of each (row, gate): totals, barrier
+      if (p.use_ln) {
+        for (int idx = tid; idx < nr * G; idx += kThreads) {
+          const int r = idx / G, k = idx % G;
           if (k == slot_o_late) continue;
-          const int idx = k * H + j;
-          gates[idx] = fp::layernorm_apply(gates[idx], H, st.sum[k], st.deg[k],
-                                           st.m0[k], st.shift[k], p.L[k][j],
-                                           p.Lb[k][j], p.ln_out[k][0],
-                                           p.ln_out[k][1]);
+          long long s = 0, q = 0;
+          for (int j = 0; j < un; ++j) {
+            const long long g = gates[r * C + k * u + j];
+            s += g;
+            q += g * g;
+          }
+          scan::add64(&st[((g0 + r) * kSlots + k) * 2], s);
+          scan::add64(&st[((g0 + r) * kSlots + k) * 2 + 1], q);
+        }
+        scan::grid_sync(bar, target, nb);
+        for (int idx = tid; idx < nr * G; idx += kThreads) {
+          const int r = idx / G, k = idx % G;
+          if (k != slot_o_late)
+            scan::ln_multipliers(&st[((g0 + r) * kSlots + k) * 2], H,
+                                 &ln[(r * kSlots + k) * 4]);
+        }
+        __syncthreads();
+        for (int idx = tid; idx < nr * C; idx += kThreads) {
+          const int r = idx / C, c = idx % C, k = c / u, j = c % u;
+          if (j >= un || k == slot_o_late) continue;
+          gates[idx] = scan::ln_apply(&ln[(r * kSlots + k) * 4], H, gates[idx],
+                                      p.L[k][unit0 + j], p.Lb[k][unit0 + j],
+                                      p.ln_out[k]);
+        }
+        __syncthreads();
+      }
+
+      // 3. the cell on this CTA's units.  The gates' activations first, one
+      //    a thread (sigmoid for i, f and an o without peephole, tanh for
+      //    z), in place; then c_new (a frozen row keeps its c) and the
+      //    peephole o gate on it
+      for (int idx = tid; idx < nr * C; idx += kThreads) {
+        const int c = idx % C, k = c / u;
+        if (c % u >= un || k == slot_o_late) continue;
+        gates[idx] = k == p.slot_z ? fp::tanh_q15(gates[idx], 3)
+                                   : fp::sigmoid_q15(gates[idx], 3);
+      }
+      __syncthreads();
+      for (int idx = tid; idx < nr * u; idx += kThreads) {
+        const int r = idx / u, j = idx % u;
+        if (j >= un) continue;
+        int32_t* gb = gates + r * C;
+        const int32_t f_act = gb[p.slot_f * u + j];
+        const int32_t i_act = p.cifg ? cell::cifg_input(f_act) : gb[p.slot_i * u + j];
+        const int16_t c_new = cell::combine_c(i_act, f_act, gb[p.slot_z * u + j],
+                                              cs[idx], p.cell_int_bits);
+        if (p.valid_len == nullptr || t < p.valid_len[g0 + r]) {
+          cs[idx] = c_new;
+          if (!one) p.c_out[(size_t)(g0 + r) * H + unit0 + j] = c_new;
+        }
+        if (slot_o_late >= 0) {
+          const int k = slot_o_late;
+          gb[k * u + j] = cell::o_peephole(gb[k * u + j], p.P[k][unit0 + j], c_new,
+                                           p.eff_c[k][0], p.eff_c[k][1]);
+        }
+        cz[idx] = c_new;
+      }
+      __syncthreads();
+      if (slot_o_late >= 0 && p.use_ln) {
+        const int k = slot_o_late;
+        for (int r = tid; r < nr; r += kThreads) {
+          long long s = 0, q = 0;
+          for (int j = 0; j < un; ++j) {
+            const long long g = gates[r * C + k * u + j];
+            s += g;
+            q += g * g;
+          }
+          scan::add64(&st[((g0 + r) * kSlots + kSlots - 1) * 2], s);
+          scan::add64(&st[((g0 + r) * kSlots + kSlots - 1) * 2 + 1], q);
+        }
+        scan::grid_sync(bar, target, nb);
+        for (int r = tid; r < nr; r += kThreads)
+          scan::ln_multipliers(&st[((g0 + r) * kSlots + kSlots - 1) * 2], H,
+                               &ln[(r * kSlots + kSlots - 1) * 4]);
+        __syncthreads();
+        for (int idx = tid; idx < nr * u; idx += kThreads) {
+          const int r = idx / u, j = idx % u;
+          if (j >= un) continue;
+          int32_t* g = &gates[r * C + k * u + j];
+          *g = scan::ln_apply(&ln[(r * kSlots + kSlots - 1) * 4], H, *g,
+                              p.L[k][unit0 + j], p.Lb[k][unit0 + j], p.ln_out[k]);
+        }
+        __syncthreads();
+      }
+      // sigmoid of the peephole o gate and tanh(c_new), side by side (the
+      // latter in z's place, whose activation is spent)
+      for (int idx = tid; idx < 2 * nr * u; idx += kThreads) {
+        const int e = idx / (nr * u), rj = idx % (nr * u), r = rj / u, j = rj % u;
+        if (j >= un) continue;
+        if (e == 0) {
+          gates[r * C + p.slot_z * u + j] = fp::tanh_q15(cz[rj], p.cell_int_bits);
+        } else if (slot_o_late >= 0) {
+          int32_t* g = &gates[r * C + slot_o_late * u + j];
+          *g = fp::sigmoid_q15(*g, 3);
         }
       }
-    }
-
-    // 3. cell update (and the peephole o gate, which reads c_new)
-    long long so[4] = {0, 0, 0, 0}, qo[4] = {0, 0, 0, 0};
-    for (int j = tid; j < H; j += kThreads) {
-      const int16_t c_new = cell::update_c(
-          p.cifg ? 0 : gates[p.slot_i * H + j], gates[p.slot_f * H + j],
-          gates[p.slot_z * H + j], c[j], p.cifg, p.cell_int_bits);
-      c[j] = c_new;
-      if (slot_o_late >= 0) {
-        const int k = slot_o_late;
-        const int32_t o16 = cell::o_peephole(gates[k * H + j], p.P[k][j], c_new,
-                                             p.eff_c[k][0], p.eff_c[k][1]);
-        gates[k * H + j] = o16;
-        so[0] += o16;
-        qo[0] += (long long)o16 * o16;
-      }
-    }
-    if (slot_o_late >= 0 && p.use_ln) {
-      const int k = slot_o_late;
-      ln_stats(so, qo, H, 1, &st);
-      for (int j = tid; j < H; j += kThreads) {
-        gates[k * H + j] = fp::layernorm_apply(
-            gates[k * H + j], H, st.sum[0], st.deg[0], st.m0[0], st.shift[0],
-            p.L[k][j], p.Lb[k][j], p.ln_out[k][0], p.ln_out[k][1]);
-      }
-    }
-
-    // 4. hidden output m = sat8(mbqm(o * tanh(c), eff_m) + zp_m)
-    int8_t* m_dst = p.use_proj ? m : h;  // no projection: m IS the new h
-    for (int j = tid; j < H; j += kThreads) {
-      m_dst[j] = cell::hidden_out(gates[p.slot_o * H + j], c[j], p.cell_int_bits,
-                                  p.eff_m[0], p.eff_m[1], p.zp_m);
-    }
-    __syncthreads();
-
-    // 5. projection h = sat8(mbqm(m @ W_proj + fold_proj, eff_proj) + zp_h)
-    if (p.use_proj) {
-      matvec(m, H, p.W_proj, p.d_out, p.fold_proj, gates, part);
       __syncthreads();
-      for (int j = tid; j < p.d_out; j += kThreads) {
-        h[j] = fp::sat8(fp::wrap32(
-            (int64_t)fp::mbqm(gates[j], p.eff_proj[0], p.eff_proj[1]) + p.zp_h_out));
+
+      // 4. m = sat8(mbqm(sigmoid(o) * tanh(c), eff_m) + zp_m) on this CTA's
+      //    units.  With projection m goes to the grid's double-buffered m;
+      //    without, m IS the new h (a frozen row re-emits its h), written
+      //    to the grid's double-buffered h and to ys
+      for (int idx = tid; idx < nr * u; idx += kThreads) {
+        const int r = idx / u, j = idx % u, b = g0 + r;
+        if (j >= un) continue;
+        const int8_t m = cell::hidden_from_acts(
+            gates[r * C + p.slot_o * u + j], gates[r * C + p.slot_z * u + j],
+            p.eff_m[0], p.eff_m[1], p.zp_m);
+        if (p.use_proj) {
+          mb_next[b * mp + unit0 + j] = m;
+        } else {
+          const bool live = p.valid_len == nullptr || t < p.valid_len[b];
+          const int8_t h = live ? m : hs[r * hp + unit0 + j];
+          hb_next[b * hp + unit0 + j] = h;
+          p.ys[((size_t)b * T + t) * d_out + unit0 + j] = h;
+          if (t == steps - 1) p.h_out[(size_t)b * d_out + unit0 + j] = h;
+        }
       }
-      __syncthreads();
+      // 5. with projection: barrier; every CTA takes the group's full m and
+      //    forms its W_proj columns of h = sat8(mbqm(m @ W_proj + fold_proj,
+      //    eff_proj) + zp_h) into the grid's h and ys
+      if (p.use_proj) {
+        scan::grid_sync(bar, target, nb);
+        scan::load_rows(mfull, mb_next + (size_t)g0 * mp, nr, mp);
+        __syncthreads();
+        scan::matvec(mfull, nr, mp, Wp4, pl.proj, wc, part, macc);
+        for (int idx = tid; idx < nr * pcn; idx += kThreads) {
+          const int r = idx / pcn, c = idx % pcn, col = pc0 + c, b = g0 + r;
+          const bool live = p.valid_len == nullptr || t < p.valid_len[b];
+          const int32_t acc =
+              fp::wrap32((int64_t)macc[r * wc + c] + p.fold_proj[col]);
+          const int8_t h =
+              live ? fp::sat8(fp::wrap32((int64_t)fp::mbqm(acc, p.eff_proj[0],
+                                                           p.eff_proj[1]) +
+                                         p.zp_h_out))
+                   : hs[r * hp + col];
+          hb_next[b * hp + col] = h;
+          p.ys[((size_t)b * T + t) * d_out + col] = h;
+          if (t == steps - 1) p.h_out[(size_t)b * d_out + col] = h;
+        }
+      }
+      // the group's new h is read next in step t + 1: the last group's
+      // barrier publishes every group's (a group reads only its own rows)
+      if (g0 + nr == B)
+        scan::grid_sync(bar, target, nb);
+      else
+        __syncthreads();
     }
-    for (int j = tid; j < p.d_out; j += kThreads) ys_t[j] = h[j];
   }
-  __syncthreads();
-  for (int j = tid; j < p.d_out; j += kThreads) p.h_out[(size_t)b * p.d_out + j] = h[j];
-  for (int j = tid; j < H; j += kThreads) p.c_out[(size_t)b * H + j] = c[j];
+  if (one)
+    for (int idx = tid; idx < B * un; idx += kThreads) {
+      const int b = idx / un, j = idx % un;
+      p.c_out[(size_t)b * H + unit0 + j] = cs[b * u + j];
+    }
+  if (steps == 0)  // no live step: h_out = h0 (else the last step wrote it)
+    for (int idx = tid; idx < B * (col1 - col0); idx += kThreads) {
+      const int b = idx / (col1 - col0), col = col0 + idx % (col1 - col0);
+      p.h_out[(size_t)b * d_out + col] = p.h0[(size_t)b * d_out + col];
+    }
 }
 
 }  // namespace
 
-// Shared-memory bytes the kernel needs for one row.
-static int quant_lstm_scan_smem_bytes(int G, int H, int d_out) {
-  return G * H * 4 + kPartInts * 4 + ((H + 7) & ~7) * 2 + ((d_out + 15) & ~15) +
-         ((H + 15) & ~15);
-}
-
 // Plain C entry point (bound with ctypes).
 //   ptrs: acc_x, R, fold_hb, P[4], L[4], Lb[4], W_proj, fold_proj, h0, c0,
-//         valid_len, ys, h_out, c_out                      (23 pointers)
+//         valid_len, ys, h_out, c_out, ws                  (24 pointers)
 //   ints: T, H, d_out, G, use_ln, use_proj, use_ph, cifg, slot_i, slot_f,
 //         slot_z, slot_o, eff_x[4][2], eff_h[4][2], eff_c[4][2],
 //         ln_out[4][2], eff_m[2], eff_proj[2], zp_m, zp_h_out,
 //         cell_int_bits                                   (51 ints)
-// Returns cudaGetLastError() (or the attribute call's error).
+// `ws` is a zeroed workspace of the plan's bytes; n_sm the card's SMs.
+// Returns cudaGetLastError() (or the first failing call's error;
+// cudaErrorInvalidValue where the plan refuses the shapes).
 extern "C" int quant_lstm_scan_launch(const void* const* ptrs, const int32_t* ints,
-                                      int B, void* stream) {
+                                      int B, int n_sm, void* stream) {
   ScanParams p;
   int i = 0;
   p.acc_x = static_cast<const int32_t*>(ptrs[i++]);
@@ -221,8 +419,10 @@ extern "C" int quant_lstm_scan_launch(const void* const* ptrs, const int32_t* in
   p.ys = static_cast<int8_t*>(const_cast<void*>(ptrs[i++]));
   p.h_out = static_cast<int8_t*>(const_cast<void*>(ptrs[i++]));
   p.c_out = static_cast<int16_t*>(const_cast<void*>(ptrs[i++]));
+  p.ws = static_cast<unsigned char*>(const_cast<void*>(ptrs[i++]));
 
   int j = 0;
+  p.B = B;
   p.T = ints[j++];
   p.H = ints[j++];
   p.d_out = ints[j++];
@@ -247,10 +447,46 @@ extern "C" int quant_lstm_scan_launch(const void* const* ptrs, const int32_t* in
   p.zp_h_out = ints[j++];
   p.cell_int_bits = ints[j++];
 
-  const int smem = quant_lstm_scan_smem_bytes(p.G, p.H, p.d_out);
+  const scan::Plan pl = scan::plan(0, p.H, p.d_out, p.G, B, p.use_proj, n_sm);
+  if (pl.err != scan::kPlanOk) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      quant_lstm_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      quant_lstm_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  quant_lstm_scan_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  void* args[] = {&p, const_cast<scan::Plan*>(&pl)};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(quant_lstm_scan_kernel),
+                                    dim3(pl.nb), dim3(kThreads), args, pl.smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The plan of a launch at (H, d_out, G, B, proj) on n_sm SMs: out = {u,
+// nb, rg, smem, ws}.  Returns 0, or the scan::PlanError that refuses the
+// shapes.
+extern "C" int quant_lstm_scan_plan(int H, int d_out, int G, int B, int proj,
+                                    int n_sm, long long* out) {
+  const scan::Plan pl = scan::plan(0, H, d_out, G, B, proj, n_sm);
+  const long long vals[5] = {pl.u, pl.nb, pl.rg, pl.smem, pl.ws};
+  for (int i = 0; i < 5; ++i) out[i] = vals[i];
+  return pl.err;
+}
+
+// The cost of the grid barrier alone, for measuring it on the card: one
+// cooperative grid of nb CTAs (kThreads each) passing n_barriers of
+// scan::grid_sync.  `counter` is a zeroed unsigned int in device memory.
+// No serving path launches it.
+__global__ void __launch_bounds__(kThreads, 1)
+    grid_sync_probe_kernel(unsigned int* counter, int n_barriers) {
+  unsigned int target = 0;
+  for (int i = 0; i < n_barriers; ++i) scan::grid_sync(counter, target, gridDim.x);
+}
+
+extern "C" int quant_scan_barrier_probe(void* counter, int n_barriers, int nb,
+                                        void* stream) {
+  void* args[] = {&counter, &n_barriers};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(grid_sync_probe_kernel), dim3(nb), dim3(kThreads),
+      args, 0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

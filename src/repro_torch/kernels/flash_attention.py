@@ -18,10 +18,11 @@ with causal (``k <= q + q_offset``) and sliding-window (``k > q + q_offset
 reads KV head ``h // (H // KVH)`` in place).  Unlike the TPU kernel, any
 ``Sq``/``Sk`` is taken: the ragged tail of the last tile is masked.
 
-The kernel has two forms of one design (``csrc/flash_attention.cu``): bf16
-inputs with head_dim 64 or 128 and rows aligned to 16 bytes (every tensor
-the model passes) run on the tensor cores (``mma.sync``), everything else
-on the float32 FMA units.
+The kernel has two forms (``csrc/flash_attention.cu``): bf16 inputs with
+head_dim 64 or 128 and rows aligned to 16 bytes (every tensor the model
+passes) run on the tensor cores (TMA loads into a ring of 128-key tiles,
+``wgmma`` products, 128-row q tiles), everything else on the float32 FMA
+units (64 x 64 tiles).  ``kernel_tiles`` says which tiles a call runs at.
 
 ``scale`` defaults to ``1/sqrt(D)`` applied to the float32 logits, the TPU
 kernel's semantics.  ``layers.attention.flash_attention`` pre-scales q in
@@ -32,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -41,8 +42,10 @@ from . import build
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:77"
 NEG_INF = -1e30
-BLOCK_Q = 64  # the CUDA kernel's tiles (rows of q, rows of k per step)
+BLOCK_Q = 64  # the FMA form's tiles (rows of q, rows of k per step)
 BLOCK_K = 64
+TC_BLOCK_Q = 128  # the tensor-core form's tiles
+TC_BLOCK_K = 128
 HEAD_DIMS = (16, 64, 128)  # head widths the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,6 +64,27 @@ def _check_shapes(q, k, v):
     if q.dtype != k.dtype or q.dtype != v.dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
+
+
+def tensor_core_form(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                     ) -> bool:
+    """Does the CUDA kernel run these inputs in its tensor-core form?  bf16,
+    head_dim 64 or 128, base addresses and batch/sequence/head strides
+    aligned to 16 bytes (what TMA needs to read the rows in place)."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in (64, 128):
+        return False
+    return all(t.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                              for st in t.stride()[:3])
+               for t in (q, k, v))
+
+
+def kernel_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> Dict[str, int]:
+    """``{block_q, block_k}``: the tiles the CUDA kernel runs these inputs
+    at, for holding it against the plain version at its own tiles."""
+    if tensor_core_form(q, k, v):
+        return dict(block_q=TC_BLOCK_Q, block_k=TC_BLOCK_K)
+    return dict(block_q=BLOCK_Q, block_k=BLOCK_K)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,9 +141,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """Attention forward of ``(B, Sq, H, D)`` q over ``(B, Sk, KVH, D)`` k/v.
 
-    CUDA tensors launch the kernel, which tiles by ``BLOCK_Q`` x
-    ``BLOCK_K`` whatever ``block_q``/``block_k`` say; CPU tensors take the
-    plain version at ``block_q`` x ``block_k``.  Each of q, k, v needs a
+    CUDA tensors launch the kernel, which tiles as ``kernel_tiles`` says
+    whatever ``block_q``/``block_k`` say; CPU tensors take the plain
+    version at ``block_q`` x ``block_k``.  Each of q, k, v needs a
     contiguous last axis; the other axes are read through their strides.
     """
     if q.device.type != "cuda":

@@ -1,9 +1,10 @@
-"""Persistent integer GRU sequence kernel: the CUDA launch.
+"""Cooperative integer GRU sequence kernel: the CUDA launch.
 
 Port of the GRU form of ``repro.kernels.quant_lstm_scan.
 quant_recurrent_seq_scan_pallas``: the recurrent stage of a whole GRU
 sequence in ONE launch per layer, the time loop inside the kernel
-(``csrc/quant_gru_scan.cu``).  ``quant_lstm_scan.quant_recurrent_seq_scan``
+(``csrc/quant_gru_scan.cu``), on the cooperative grid that ``scan_plan``
+reads from the library.  ``quant_lstm_scan.quant_recurrent_seq_scan``
 dispatches a CUDA GRU layer here; its plain version is the cell-generic
 ``quant_lstm_scan.quant_recurrent_seq_scan_plain``.
 """
@@ -16,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import build
+from .scan_plan import scan_plan, sm_count
 
 SOURCE = "src/repro_torch/csrc/quant_gru_scan.cu"
 REPLACES = "src/repro/kernels/quant_lstm_scan.py:108"
@@ -74,19 +76,24 @@ def quant_gru_seq_scan(
     h_out = torch.empty((B, H), dtype=torch.int8, device=dev)
     if B == 0 or T == 0:
         return ys, (h0.clone(),)
+    n_sm = sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+    plan = scan_plan("quant_gru_scan", H, B, n_sm)
+    ws = torch.zeros(plan.ws, dtype=torch.uint8, device=dev)
 
-    tensors = [acc_x_all, R, fold_hb, *L, *Lb, h0, valid_len, ys, h_out]
+    tensors = [acc_x_all, R, fold_hb, *L, *Lb, h0, valid_len, ys, h_out, ws]
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[None if t is None else t.data_ptr() for t in tensors])
     vals = (T,) + _spec_ints(spec)
     ints = (ctypes.c_int32 * len(vals))(*vals)
     fn = build.load("quant_gru_scan").quant_gru_scan_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.addressof(ptrs), ctypes.addressof(ints), B, stream)
+        err = fn(ctypes.addressof(ptrs), ctypes.addressof(ints), B, n_sm,
+                 stream)
     build.check(err, "quant_gru_scan")
     global launches
     launches += 1

@@ -1,13 +1,16 @@
-"""Persistent integer sequence kernels: CUDA dispatch + plain version.
+"""Cooperative integer sequence kernels: CUDA dispatch + plain version.
 
 Port of ``repro.kernels.quant_lstm_scan.quant_recurrent_seq_scan_pallas``:
 the recurrent stage of a whole sequence in ONE launch per layer, the time
 loop inside the kernel.  CUDA tensors launch the kernel of the layer's
 cell: ``csrc/quant_lstm_scan.cu`` (here) for an LSTM,
-``csrc/quant_gru_scan.cu`` (``quant_gru_scan``) for a GRU.  CPU tensors
-take ``quant_recurrent_seq_scan_plain``, a Python loop over
-``ref.recurrent_step``.  The masked form (``valid_len``) freezes
-row b for t >= valid_len[b] and still emits its unchanged h at ys[b, t].
+``csrc/quant_gru_scan.cu`` (``quant_gru_scan``) for a GRU.  Each launch is
+one cooperative grid whose CTAs split the layer's hidden units and hold
+their slice of the recurrent weights in shared memory for the whole
+sequence (``scan_plan``).  CPU tensors take
+``quant_recurrent_seq_scan_plain``, a Python loop over
+``ref.recurrent_step``.  The masked form (``valid_len``) freezes row b for
+t >= valid_len[b] and still emits its unchanged h at ys[b, t].
 """
 from __future__ import annotations
 
@@ -20,12 +23,12 @@ import torch
 from . import build
 from . import quant_gru_scan
 from . import ref
+from .scan_plan import scan_plan, sm_count
 
 SOURCE = "src/repro_torch/csrc/quant_lstm_scan.cu"
 REPLACES = "src/repro/kernels/quant_lstm_scan.py:108"
 
 launches = 0  # kernel launches since the last reset (plain calls not counted)
-
 
 def quant_recurrent_seq_scan_plain(
     arrays: Dict[str, Any], spec, acc_x_all: torch.Tensor,
@@ -113,21 +116,27 @@ def quant_recurrent_seq_scan(
     c_out = torch.empty((B, H), dtype=torch.int16, device=dev)
     if B == 0 or T == 0:
         return ys, (h0.clone(), c0.clone())
+    n_sm = sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+    plan = scan_plan("quant_lstm_scan", H, d_out, G, B,
+                     int(spec.use_projection), n_sm)
+    ws = torch.zeros(plan.ws, dtype=torch.uint8, device=dev)
 
     tensors = [acc_x_all, R, fold_hb, *per_gate["P"], *per_gate["L"],
                *per_gate["Lb"], W_proj, fold_proj, h0, c0, valid_len, ys,
-               h_out, c_out]
+               h_out, c_out, ws]
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[None if t is None else t.data_ptr() for t in tensors])
     vals = (T,) + _spec_ints(spec)
     ints = (ctypes.c_int32 * len(vals))(*vals)
     fn = build.load("quant_lstm_scan").quant_lstm_scan_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.addressof(ptrs), ctypes.addressof(ints), B, stream)
+        err = fn(ctypes.addressof(ptrs), ctypes.addressof(ints), B, n_sm,
+                 stream)
     build.check(err, "quant_lstm_scan")
     global launches
     launches += 1

@@ -6,9 +6,11 @@ held against on the card, so it must EQUAL the reference's
 ``ops.quant_lstm_cell`` and ``ops.int_layernorm`` (``backend="xla"``, the
 functions the Pallas kernels trace) on the same int16 inputs, made with
 numpy: the cell at the shapes of ``tests/test_kernels.py`` with and without
-CIFG for every cell format, and its peephole o-gate contract with and
-without the in-fusion LayerNorm; the LayerNorm over row lengths 1..16384
-with constant rows (V = 0) and rows at the int16 extremes.
+CIFG for every cell format (the cell without peephole is elementwise, so
+the reference runs once per format on all three shapes' inputs together,
+one compiled program instead of three), and its peephole o-gate contract
+with and without the in-fusion LayerNorm; the LayerNorm over row lengths
+1..16384 with constant rows (V = 0) and rows at the int16 extremes.
 """
 import functools
 
@@ -25,6 +27,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import int_layernorm as tln  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import quant_lstm_cell as tcell  # noqa: E402
+from test_torch_recurrent import run_compiled  # noqa: E402
 
 # The suite runs in several test processes that share the machine's cores;
 # one intra-op thread per process keeps torch from oversubscribing them.
@@ -67,13 +70,41 @@ def _gates(rng, B, H, o_dtype=np.int16):
     return [*g, o, c]
 
 
-@pytest.mark.parametrize("B,H", [(8, 256), (16, 1024), (4, 2048)])
+CELL_SHAPES = [(8, 256), (16, 1024), (4, 2048)]
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_reference(cifg, m_c):
+    """The reference cell (no peephole: elementwise) on every shape's
+    inputs at once: one compiled program per static configuration, its
+    output cut back into the shapes.  ``{(B, H): (inputs, (m, c))}``."""
+    inputs = {(B, H): _gates(np.random.default_rng(B * H + m_c), B, H)
+              for B, H in CELL_SHAPES}
+    flat = [np.concatenate([inputs[s][k].reshape(-1) for s in CELL_SHAPES])
+            for k in range(5)]
+    jm, jc = _jax_cell(cell_int_bits=m_c, cifg=cifg, eff_m=EFF_M, zp_m=-4)(
+        *[jnp.asarray(a[None]) for a in flat])
+    out, pos = {}, 0
+    for B, H in CELL_SHAPES:
+        cut = slice(pos, pos + B * H)
+        out[(B, H)] = (inputs[(B, H)],
+                       (np.asarray(jm)[0, cut].reshape(B, H),
+                        np.asarray(jc)[0, cut].reshape(B, H)))
+        pos += B * H
+    return out
+
+
+@pytest.mark.parametrize("B,H", CELL_SHAPES)
 @pytest.mark.parametrize("cifg", [False, True])
 @pytest.mark.parametrize("m_c", [0, 2, 4])
 def test_cell_plain_matches_reference(B, H, cifg, m_c):
-    rng = np.random.default_rng(B * H + m_c)
-    (m, c), (jm, jc) = _run_both(_gates(rng, B, H), cell_int_bits=m_c,
-                                 cifg=cifg, eff_m=EFF_M, zp_m=-4)
+    arrays, (jm, jc) = _cell_reference(cifg, m_c)[(B, H)]
+    names = ("i16", "f16", "z16", "o_in", "c_q")
+    before = tcell.launches
+    m, c = tops.quant_lstm_cell(
+        **dict(zip(names, [torch.from_numpy(a) for a in arrays])),
+        cell_int_bits=m_c, cifg=cifg, eff_m=EFF_M, zp_m=-4)
+    assert tcell.launches == before  # CPU tensors launch nothing
     assert m.dtype == torch.int8 and c.dtype == torch.int16
     _eq(m, jm)
     _eq(c, jc)
@@ -125,13 +156,27 @@ def _ln_rows(n, seed):
     return q, lw, lb
 
 
-@pytest.mark.parametrize("n", [1, 3, 12, 640, 2048, 16384])
+LN_LENGTHS = [1, 3, 12, 640, 2048, 16384]
+LN_OUT = jfp.quantize_multiplier(2**-10 * 3e-5 / 2**-12)
+
+
+@functools.lru_cache(maxsize=None)
+def _layernorm_references():
+    """The reference LayerNorm at every row length, its programs traced and
+    compiled together (``run_compiled``): ``{n: int16 array}``."""
+    m0, sh = LN_OUT
+    jobs = [(jax.jit(lambda a, w, b: jops.int_layernorm(
+        a, w, b, out_m0=m0, out_shift=sh, backend="xla")),
+        tuple(jnp.asarray(x) for x in _ln_rows(n, n))) for n in LN_LENGTHS]
+    return {n: np.asarray(out)
+            for n, out in zip(LN_LENGTHS, run_compiled(jobs))}
+
+
+@pytest.mark.parametrize("n", LN_LENGTHS)
 def test_layernorm_plain_matches_reference(n):
     q, lw, lb = _ln_rows(n, n)
-    m0, sh = jfp.quantize_multiplier(2**-10 * 3e-5 / 2**-12)
-    want = np.asarray(jax.jit(lambda a, w, b: jops.int_layernorm(
-        a, w, b, out_m0=m0, out_shift=sh, backend="xla"))(
-            jnp.asarray(q), jnp.asarray(lw), jnp.asarray(lb)))
+    m0, sh = LN_OUT
+    want = _layernorm_references()[n]
     before = tln.launches
     got = tops.int_layernorm(torch.from_numpy(q), torch.from_numpy(lw),
                              torch.from_numpy(lb), out_m0=m0, out_shift=sh)

@@ -325,7 +325,127 @@ def test_flash_kernel_matches_plain(cuda, shape):
         before = KF.launches
         got = KF.flash_attention(**kw)
         assert KF.launches == before + 1
-        AC.check_close(label, got, KF.flash_attention_plain(**kw))
+        AC.check_close(label, got, KF.flash_attention_plain(
+            **kw, **KF.kernel_tiles(kw["q"], kw["k"], kw["v"])))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_tensor_core_form_never_reaches_plain(cuda, monkeypatch, D):
+    """The TMA + wgmma form of kernel 5 (bf16, aligned rows) on a ragged
+    GQA prefill shape and on a strided view (q, k, v as slices of one
+    fused projection, read in place), with the plain version patched to
+    raise: one launch each, within 2 bf16 ulps of the plain version
+    computed before the patch."""
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.testing import attention_checks as AC
+
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    B, S, H, KVH = 2, 1100, 8, 2
+    qkv = torch.randn((B, S, H + 2 * KVH, D), generator=gen,
+                      device=cuda).bfloat16()
+    q, k, v = qkv.split([H, KVH, KVH], dim=2)  # strided views
+    cases = [(q, k, v, dict(causal=True, window=0)),
+             (q.contiguous(), k.contiguous(), v.contiguous(),
+              dict(causal=True, window=300))]
+    wants = []
+    for qq, kk, vv, kw in cases:
+        assert KF.tensor_core_form(qq, kk, vv)
+        wants.append(KF.flash_attention_plain(qq, kk, vv, **kw,
+                                              **KF.kernel_tiles(qq, kk, vv)))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(KF, "flash_attention_plain", refuse)
+    for (qq, kk, vv, kw), want in zip(cases, wants):
+        before = KF.launches
+        got = KF.flash_attention(qq, kk, vv, **kw)
+        torch.cuda.synchronize()
+        assert KF.launches == before + 1
+        AC.check_close(f"D{D} {kw}", got, want)
+
+
+@pytest.mark.parametrize("B", [1, 16, 64])
+def test_scan_kernels_match_plain_at_batch(cuda, B):
+    """The cooperative sequence kernels at one, 16 and 64 batch rows (64
+    pass in two groups at full width): four LSTM variants and both GRU
+    variants, a width the split leaves ragged (H = 40: one unit a CTA) and
+    a full-width layer of each, unmasked and masked, bit-exact."""
+    from repro_torch.core import recipe as R
+    from repro_torch.core.calibrate import Stats, TapCollector
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import quant_lstm_scan as K2
+    from repro_torch.models import lstm as L
+    from repro_torch.models import quant_lstm as QL
+
+    def lstm_layer(variant, d_in, H, d_proj, seed):
+        cfg = L.LSTMConfig(d_in, H, d_proj if variant.use_projection else 0,
+                           variant)
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        params = L.init_lstm_params(gen, cfg, cuda)
+        xs = 0.8 * torch.randn((B, 6, d_in), generator=gen, device=cuda)
+        col = TapCollector()
+        L.lstm_layer(params, cfg, xs, collector=col)
+        stats = Stats()
+        stats.merge(col.snapshot())
+        return R.quantize_lstm_layer(params, cfg, stats), xs
+
+    layers = [lstm_layer(L.ALL_VARIANTS[vi], 9, 40, 6, vi)
+              for vi in (0, 5, 10, 15)]
+    layers.append(lstm_layer(L.LSTMVariant(use_layernorm=True,
+                                           use_projection=True),
+                             640, 2048, 640, 7))
+    layers += [_gru_layer(cuda, ln, seed=7 + int(ln), d_in=9, H=40, B=B,
+                          T=6) for ln in (False, True)]
+    layers.append(_gru_layer(cuda, True, seed=9, d_in=64, H=2048, B=B, T=6))
+    valid = torch.tensor(([6, 2, 0, 5] * 16)[:B] if B > 1 else [3],
+                         dtype=torch.int32, device=cuda)
+    for (arrays, spec), xs in layers:
+        xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+        acc = K1.int8_matmul_plain(
+            xs_q.reshape(B * 6, -1), arrays["W_cat"],
+            arrays["fold_x_cat"]).reshape(B, 6, -1)
+        state0 = QL.initial_recurrent_state(spec, B, cuda)
+        for vl in (None, valid):
+            got = K2.quant_recurrent_seq_scan(arrays, spec, acc, state0, vl)
+            want = K2.quant_recurrent_seq_scan_plain(arrays, spec, acc,
+                                                     state0, vl)
+            assert torch.equal(got[0], want[0])
+            for g, w in zip(got[1], want[1], strict=True):
+                assert torch.equal(g, w)
+
+
+def test_cuda_lstm_layer_never_reaches_plain(cuda, monkeypatch):
+    """With every plain version made to raise, a CUDA LSTM layer (LN +
+    projection + peephole, B = 16) runs on the GEMM and the cooperative
+    sequence kernel only, one launch each per call."""
+    from repro_torch.core import recipe as R
+    from repro_torch.core.calibrate import Stats, TapCollector
+    from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels import quant_lstm_scan as K2
+    from repro_torch.models import lstm as L
+    from repro_torch.models import quant_lstm as QL
+
+    variant = L.LSTMVariant(use_layernorm=True, use_projection=True,
+                            use_peephole=True)
+    cfg = L.LSTMConfig(24, 300, 96, variant)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    params = L.init_lstm_params(gen, cfg, cuda)
+    xs = 0.8 * torch.randn((16, 7, 24), generator=gen, device=cuda)
+    col = TapCollector()
+    L.lstm_layer(params, cfg, xs, collector=col)
+    stats = Stats()
+    stats.merge(col.snapshot())
+    arrays, spec = R.quantize_lstm_layer(params, cfg, stats)
+    xs_q = QL.quantize_input(xs, spec.s_x, spec.zp_x)
+    want = QL.quant_recurrent_layer(arrays, spec, xs_q)
+    _refuse_plain_versions(monkeypatch)
+    before = (K1.launches, K2.launches)
+    ys, (h, c) = QL.quant_recurrent_layer(arrays, spec, xs_q)
+    torch.cuda.synchronize()
+    assert (K1.launches, K2.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(ys, want[0]) and torch.equal(h, want[1][0])
+    assert torch.equal(c, want[1][1])
 
 
 def test_cuda_transformer_prefill_never_reaches_plain(cuda, monkeypatch):

@@ -7,7 +7,8 @@ Integer outputs and states must be equal.  The bf16 head keeps the rule of
 ``test_torch_lm.py`` (2 bf16 ulps of the row's largest |logit|; tokens
 equal wherever the reference's top-2 margin exceeds that).  The reference
 cases are built live by ``repro.testing.golden``, never read from the
-committed golden files.
+committed golden files; the layer references' programs are traced and
+compiled together.
 """
 import dataclasses
 import functools
@@ -38,6 +39,7 @@ from repro_torch.kernels import quant_lstm_scan as tscan  # noqa: E402
 from repro_torch.models import gru as TG  # noqa: E402
 from repro_torch.models import lstm_lm as TLM  # noqa: E402
 from repro_torch.models import quant_lstm as TQL  # noqa: E402
+from test_torch_recurrent import compile_all, run_compiled  # noqa: E402
 
 B, PROMPT, STEPS = 2, 6, 8
 
@@ -60,6 +62,34 @@ def _case(variant):
     return xs_q, arrays, spec, t_arrays, t_spec
 
 
+def _valid(xs_q):
+    Bx, T = xs_q.shape[:2]
+    return np.array([T - 2, 0][:Bx] + [T] * max(Bx - 2, 0), np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _references():
+    """The reference's layer (``xla`` and ``interpret``) and masked
+    executor on both variants' cases, their programs traced and compiled
+    together (``run_compiled``): ``{(kind, variant): (ys, state)}``."""
+    keys, jobs = [], []
+    for variant in JG.ALL_VARIANTS:
+        xs_q, arrays, spec, _, _ = _case(variant)
+        for backend in ("xla", "interpret"):
+            keys.append((backend, variant))
+            jobs.append((jax.jit(
+                lambda a, x, spec=spec, backend=backend:
+                JQL.quant_recurrent_layer(a, spec, x, backend=backend)),
+                (arrays, xs_q)))
+        keys.append(("masked", variant))
+        jobs.append((jax.jit(
+            lambda a, x, s, v, spec=spec: jops.quant_recurrent_seq_masked(
+                a, spec, x, s, v, backend="xla")),
+            (arrays, xs_q, JQL.initial_recurrent_state(spec, xs_q.shape[0]),
+             jnp.asarray(_valid(xs_q)))))
+    return dict(zip(keys, run_compiled(jobs)))
+
+
 def _eq(t, j):
     np.testing.assert_array_equal(t.numpy().astype(np.int64),
                                   np.asarray(j).astype(np.int64))
@@ -71,8 +101,7 @@ def test_gru_variant_layer_matches_reference(variant, backend):
     """``ys`` and ``h`` equal the reference's scan executor and its Pallas
     sequence kernel (interpret mode)."""
     xs_q, arrays, spec, t_arrays, t_spec = _case(variant)
-    ys, state = jax.jit(lambda a, x: JQL.quant_recurrent_layer(
-        a, spec, x, backend=backend))(arrays, xs_q)
+    ys, state = _references()[(backend, variant)]
     t_ys, t_state = TQL.quant_recurrent_layer(
         t_arrays, t_spec, torch.from_numpy(np.array(xs_q)))
     _eq(t_ys, ys)
@@ -84,12 +113,9 @@ def test_gru_variant_layer_matches_reference(variant, backend):
 @pytest.mark.parametrize("variant", JG.ALL_VARIANTS, ids=lambda v: v.name)
 def test_gru_masked_matches_reference_and_prefix(variant):
     xs_q, arrays, spec, t_arrays, t_spec = _case(variant)
-    Bx, T = xs_q.shape[:2]
-    valid = np.array([T - 2, 0][:Bx] + [T] * max(Bx - 2, 0), np.int32)
-    state0 = JQL.initial_recurrent_state(spec, Bx)
-    ys, state = jax.jit(lambda a, x, s, v: jops.quant_recurrent_seq_masked(
-        a, spec, x, s, v, backend="xla"))(arrays, xs_q, state0,
-                                         jnp.asarray(valid))
+    Bx = xs_q.shape[0]
+    valid = _valid(xs_q)
+    ys, state = _references()[("masked", variant)]
     x_t = torch.from_numpy(np.array(xs_q))
     t_ys, t_state = TQL.quant_recurrent_layer(
         t_arrays, t_spec, x_t, valid_len=torch.from_numpy(valid))
@@ -210,10 +236,14 @@ def test_gru_lm_prefill_and_decode_match_reference(carried):
     prompt = rng.integers(0, cfg.vocab_size, size=(B, PROMPT)).astype(np.int32)
     forced = rng.integers(0, cfg.vocab_size, size=(STEPS, B, 1)).astype(
         np.int32)
-    prefill = jax.jit(lambda p, t, s: JLM.quant_prefill(
-        p, qlayers, cfg, t, s, backend="xla"))
-    decode = jax.jit(lambda p, t, s: JLM.quant_decode_step(
-        p, qlayers, cfg, t, s, backend="xla"))
+    state0 = JLM.init_quant_decode_state(qlayers, B)
+    prefill, decode = compile_all([
+        (jax.jit(lambda p, t, s: JLM.quant_prefill(
+            p, qlayers, cfg, t, s, backend="xla")),
+         (params, jnp.asarray(prompt), state0)),
+        (jax.jit(lambda p, t, s: JLM.quant_decode_step(
+            p, qlayers, cfg, t, s, backend="xla")),
+         (params, jnp.asarray(forced[0]), state0))])
     j_state = JLM.init_quant_decode_state(qlayers, B)
     t_state = TLM.init_quant_decode_state(t_qlayers, B)
     j_logits, j_state = prefill(params, jnp.asarray(prompt), j_state)

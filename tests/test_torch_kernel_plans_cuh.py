@@ -1,0 +1,268 @@
+"""The redesigned kernels' planning headers, compiled for the host.
+
+``src/repro_torch/csrc/flash_tiles.cuh`` (kernel 5: which key tiles a q
+tile visits, and which of those run the mask) and the partition of
+``src/repro_torch/csrc/recurrent_scan.cuh`` (kernel 4: how a layer's hidden
+units split over the cooperative grid) are valid host C++.  g++ compiles a
+small program around each, as ``test_torch_fixedpoint_cuh.py`` does for the
+fixed-point header:
+
+* the tile classification is held against a brute-force mask over causal,
+  sliding-window, ragged-Sk and ``q_offset`` shapes, at the tensor-core
+  form's tiles (128-row q tiles read by two 64-row warpgroups, 128 keys)
+  and the FMA form's (64 x 64): a skipped tile holds no attended pair and
+  is only skipped when every row of the q tile has a key (what makes the
+  skip exact), an unmasked tile holds only attended pairs, and a masked
+  one at least one pair that is not;
+* the partition (which the wrappers read from the built libraries, through
+  ``kernels.scan_plan``) covers every hidden unit exactly once on at most
+  one CTA per SM, fits every registered recurrent config at the batch
+  sizes the port runs, passes the batch rows in groups whose shared memory
+  stays bounded however many rows there are, and refuses widths that
+  cannot fit.
+"""
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.models import lstm_lm  # noqa: E402
+
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+
+TILES_PROGRAM = r"""
+#include <cstdint>
+#include <cstdio>
+
+#include "flash_tiles.cuh"
+
+// in: n, then n x (Sq, Sk, causal, window, q_offset, bq, bk, sub) int32
+// out per case, per q tile: kt0, kt1, then per sub-block of `sub` rows
+// and per key tile of the whole key range: masked (0 / 1)
+int main() {
+  int32_t n;
+  if (fread(&n, 4, 1, stdin) != 1) return 1;
+  for (int i = 0; i < n; ++i) {
+    int32_t c[8];
+    if (fread(c, 4, 8, stdin) != 8) return 1;
+    const tiles::Mask m{c[0], c[1], c[2], c[3], c[4]};
+    const int bq = c[5], bk = c[6], sub = c[7];
+    const int n_kt = (m.Sk + bk - 1) / bk;
+    for (int q0 = 0; q0 < m.Sq; q0 += bq) {
+      int32_t r[2];
+      tiles::tile_range(m, q0, bq, bk, &r[0], &r[1]);
+      fwrite(r, 4, 2, stdout);
+      for (int s0 = q0; s0 < q0 + bq; s0 += sub)
+        for (int kt = 0; kt < n_kt; ++kt) {
+          const int32_t masked = tiles::tile_masked(
+              m, s0 + m.q_offset, s0 + sub - 1 + m.q_offset, kt * bk, bk);
+          fwrite(&masked, 4, 1, stdout);
+        }
+    }
+  }
+  return 0;
+}
+"""
+
+PLAN_PROGRAM = r"""
+#include <cstdint>
+#include <cstdio>
+
+#include "recurrent_scan.cuh"
+
+// in: n, then n x (cell, H, d_out, G, B, proj, n_sm) int32
+// out: n x (err, u, nb, rg, smem, ws) int64
+int main() {
+  int32_t n;
+  if (fread(&n, 4, 1, stdin) != 1) return 1;
+  for (int i = 0; i < n; ++i) {
+    int32_t c[7];
+    if (fread(c, 4, 7, stdin) != 7) return 1;
+    const scan::Plan p = scan::plan(c[0], c[1], c[2], c[3], c[4], c[5], c[6]);
+    const int64_t r[6] = {p.err, p.u, p.nb, p.rg, p.smem, p.ws};
+    fwrite(r, 8, 6, stdout);
+  }
+  return 0;
+}
+"""
+
+
+def _compile(tmp_path_factory, name, program):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the header for the host")
+    work = tmp_path_factory.mktemp(name)
+    (work / f"{name}.cpp").write_text(program)
+    exe = work / name
+    subprocess.run([gxx, "-std=c++17", "-O2", f"-I{CSRC}", "-o", str(exe),
+                    str(work / f"{name}.cpp")], check=True, timeout=120)
+    return exe
+
+
+def _run(exe, rows):
+    blob = np.array([len(rows)], np.int32).tobytes() + np.array(
+        rows, np.int32).tobytes()
+    return subprocess.run([str(exe)], input=blob, capture_output=True,
+                          check=True, timeout=120).stdout
+
+
+# (Sq, Sk, causal, window, q_offset): the prefill's square causal shape,
+# ragged lengths, sliding windows, a decode-like offset, keys past every
+# row's reach and rows with no key at all
+MASKS = {
+    "causal": [(256, 256, 1, 0, 0), (1100, 1100, 1, 0, 0),
+               (300, 300, 1, 0, 0)],
+    "non-causal ragged": [(200, 77, 0, 0, 0), (129, 1100, 0, 0, 0)],
+    "window": [(1100, 1100, 1, 64, 0), (512, 512, 1, 200, 0),
+               (300, 300, 0, 100, 0)],
+    "q_offset": [(64, 1100, 1, 0, 1036), (200, 300, 1, 0, 100),
+                 (130, 700, 1, 128, 570), (100, 90, 1, 0, -50)],
+}
+TILINGS = {"tensor cores": (128, 128, 64), "FMA": (64, 64, 64)}
+
+
+@pytest.fixture(scope="module")
+def tiles_exe(tmp_path_factory):
+    return _compile(tmp_path_factory, "flash_tiles", TILES_PROGRAM)
+
+
+@pytest.mark.parametrize("tiling", sorted(TILINGS))
+@pytest.mark.parametrize("group", sorted(MASKS))
+def test_flash_tiles_match_brute_force(tiles_exe, group, tiling):
+    bq, bk, sub = TILINGS[tiling]
+    cases = MASKS[group]
+    raw = _run(tiles_exe, [c + (bq, bk, sub) for c in cases])
+    out = np.frombuffer(raw, np.int32)
+    pos = 0
+    for Sq, Sk, causal, window, q_offset in cases:
+        n_kt = -(-Sk // bk)
+        for q0 in range(0, Sq, bq):
+            kt0, kt1 = out[pos], out[pos + 1]
+            pos += 2
+            rows = np.arange(q0, q0 + bq)
+            qp = rows[:, None] + q_offset
+            kp = np.arange(n_kt * bk)[None, :]
+            att = (kp < Sk) & (qp > -(1 << 30))  # (rows, keys)
+            if causal:
+                att = att & (kp <= qp)
+            if window > 0:
+                att = att & (kp > qp - window)
+            real = rows < Sq  # rows past Sq are never written
+            visited = np.zeros(n_kt, bool)
+            visited[kt0:kt1] = True
+            for kt in range(n_kt):
+                if not visited[kt]:
+                    assert not att[real, kt * bk:(kt + 1) * bk].any(), (
+                        f"{(Sq, Sk, causal, window, q_offset)} q0={q0}: "
+                        f"skipped key tile {kt} holds attended keys")
+            if not visited.all():  # exact only if every row has a key
+                assert att[real].any(axis=1).all()
+            for s0 in range(q0, q0 + bq, sub):
+                blk = att[s0 - q0:s0 - q0 + sub]
+                for kt in range(n_kt):
+                    masked = out[pos]
+                    pos += 1
+                    full = blk[:, kt * bk:(kt + 1) * bk].all()
+                    assert bool(masked) == (not full), (
+                        f"{(Sq, Sk, causal, window, q_offset)} rows "
+                        f"{s0}..{s0 + sub - 1} key tile {kt}: masked="
+                        f"{masked}, every pair attended={full}")
+    assert pos == len(out)
+
+
+def _registered_layers():
+    """(name, cell, H, d_out, G, proj) of every registered recurrent
+    stack's layers, full and smoke."""
+    out = []
+    for arch in ("lstm-rnnt", "gru-rnnt"):
+        for smoke in (False, True):
+            cfg = get_config(arch, smoke=smoke)
+            cell = lstm_lm.rnn_cell(cfg)
+            lc = lstm_lm.layer_cfgs(cfg)[0]
+            G = 3 if cell == "gru" else len(lc.variant.gates)
+            proj = cell == "lstm" and lc.variant.use_projection
+            out.append((cfg.name, cell, lc.d_hidden, lc.d_output, G, proj))
+    return out
+
+
+# batch rows the port runs the kernels at: the serve and engine defaults
+# (4, 8 slots), the chip checks (1, 4, 16, 64); the SM counts of an H100
+# (132) and of a smaller part
+BATCHES = (1, 4, 8, 16, 64)
+N_SMS = (132, 114)
+# shapes beside the registered ones: every LSTM variant's gate count, H
+# that the split leaves ragged, the chip checks' small widths
+EXTRA = [("lstm", 13, 6, 4, True), ("lstm", 40, 40, 3, False),
+         ("lstm", 48, 10, 4, True), ("gru", 13, 13, 3, False),
+         ("lstm", 1001, 333, 4, True), ("gru", 1001, 1001, 3, False),
+         ("lstm", 2047, 2047, 4, False), ("lstm", 131, 7, 3, True)]
+
+
+@pytest.fixture(scope="module")
+def plan_exe(tmp_path_factory):
+    return _compile(tmp_path_factory, "scan_plan", PLAN_PROGRAM)
+
+
+def _header_plans(exe, shapes):
+    rows = [(0 if cell == "lstm" else 1, H, d, G, B, int(proj), n_sm)
+            for cell, H, d, G, B, proj, n_sm in shapes]
+    return np.frombuffer(_run(exe, rows), np.int64).reshape(-1, 6)
+
+
+@pytest.mark.parametrize("source", ["registered", "extra"])
+def test_scan_plan_header_covers_and_fits(plan_exe, source):
+    layers = ([row[1:] for row in _registered_layers()]
+              if source == "registered" else EXTRA)
+    shapes = [(cell, H, d, G, B, proj, n_sm) for cell, H, d, G, proj in layers
+              for B in BATCHES for n_sm in N_SMS]
+    got = _header_plans(plan_exe, shapes)
+    for (cell, H, d, G, B, proj, n_sm), (err, u, nb, rg, smem, ws) in zip(
+            shapes, got):
+        assert err == 0, (cell, H, d, G, B, proj, n_sm)
+        assert nb <= min(H, n_sm) and smem <= 232448 and ws > 0
+        assert 1 <= rg <= B
+        owner = np.zeros(H, np.int64)
+        for n in range(nb):
+            lo, hi = n * u, min((n + 1) * u, H)
+            assert hi > lo  # no CTA idles
+            owner[lo:hi] += 1
+        assert (owner == 1).all()  # every unit, exactly once
+
+
+@pytest.mark.parametrize("layer", [
+    ("gru", 2048, 2048, 3, False),  # gru-rnnt: h rows beside 110 KB of R_cat
+    ("lstm", 2048, 640, 4, True),  # lstm-rnnt: m rows beside R_cat, W_proj
+], ids=["gru-full", "lstm-full"])
+def test_scan_plan_groups_rows_for_any_batch(plan_exe, layer):
+    """Where all rows fit beside the weights they make one group; past
+    that, they pass in groups of a multiple of 16, and a CTA's shared
+    memory stays the same however many rows there are."""
+    cell, H, d, G, proj = layer
+    batches = (1, 16, 32, 40, 48, 64, 100, 256, 4096)
+    got = _header_plans(plan_exe, [(cell, H, d, G, B, proj, 132)
+                                   for B in batches])
+    assert (got[:, 0] == 0).all()
+    rgs, smems = got[:, 3], got[:, 4]
+    assert (smems <= 232448).all()
+    most = rgs[-1]
+    assert 16 <= most < 4096 and most % 16 == 0
+    for B, rg, smem in zip(batches, rgs, smems):
+        assert rg == B or (rg == most and smem == smems[-1]), (B, rg, smem)
+    assert got[batches.index(64), 3] < 64  # 64 rows take two groups
+
+
+@pytest.mark.parametrize("shape", [
+    ("lstm", 2048, 8192, 4, 1, True, 132),  # one 8 KB h row beside 590 KB
+    ("gru", 8192, 8192, 3, 1, False, 132),  # 1.5 MB of R_cat a CTA
+    ("lstm", 2048, 640, 4, 1, True, 8),  # too few SMs to spread it over
+    ("lstm", 0, 640, 4, 1, True, 132),  # not a layer
+    ("gru", 64, 64, 3, 1, True, 132),  # a GRU has no projection
+], ids=["lstm-d8192", "gru-H8192", "lstm-8-SMs", "H0", "gru-proj"])
+def test_scan_plan_refuses_what_cannot_fit(plan_exe, shape):
+    (err, *_), = _header_plans(plan_exe, [shape])
+    assert err != 0

@@ -5,8 +5,9 @@ reference's ``(arrays, spec)`` carried across by ``repro_torch.convert``)
 and the same int8 input go through both packages: the port's per-gate
 ``quant_lstm_layer_ref`` must equal the reference's in ``ys`` and both
 state leaves.  The cases come from the live builders in
-``repro.testing.golden``, never from the committed golden files.  The
-hybrid baseline is float and is held to a stated tolerance.
+``repro.testing.golden``, never from the committed golden files; the
+reference's programs are traced and compiled together.  The hybrid
+baseline is float and is held to a stated tolerance.
 """
 import dataclasses
 import functools
@@ -25,6 +26,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import quant_lstm as TQL  # noqa: E402
+from test_torch_recurrent import run_compiled  # noqa: E402
 
 # The suite runs in several test processes that share the machine's cores;
 # one intra-op thread per process keeps torch from oversubscribing them.
@@ -45,11 +47,22 @@ def _eq(t, j):
                                   np.asarray(j).astype(np.int64))
 
 
+@functools.lru_cache(maxsize=None)
+def _references():
+    """The reference's per-gate executor on every variant's case, its
+    programs traced and compiled together (``run_compiled``)."""
+    jobs = []
+    for variant in JL.ALL_VARIANTS:
+        xs_q, arrays, spec, _, _ = _case(variant)
+        jobs.append((jax.jit(lambda a, x, spec=spec: JQL.quant_lstm_layer_ref(
+            a, spec, x)), (arrays, xs_q)))
+    return dict(zip(JL.ALL_VARIANTS, run_compiled(jobs)))
+
+
 @pytest.mark.parametrize("variant", JL.ALL_VARIANTS, ids=lambda v: v.name)
 def test_per_gate_layer_matches_reference(variant):
     xs_q, arrays, spec, t_arrays, t_spec = _case(variant)
-    j_ys, j_state = jax.jit(lambda a, x: JQL.quant_lstm_layer_ref(
-        a, spec, x))(arrays, xs_q)
+    j_ys, j_state = _references()[variant]
     before = serve.launch_counts()
     ys, state = TQL.quant_lstm_layer_ref(t_arrays, t_spec,
                                          torch.from_numpy(np.array(xs_q)))

@@ -25,6 +25,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import lstm_lm as TLM  # noqa: E402
 from repro_torch.models import quant_lstm as TQL  # noqa: E402
+from test_torch_recurrent import compile_all  # noqa: E402
 
 B, PROMPT, STEPS = 2, 6, 8
 
@@ -68,10 +69,14 @@ def test_prefill_and_decode_match_reference(carried):
     prompt = rng.integers(0, cfg.vocab_size, size=(B, PROMPT)).astype(np.int32)
     forced = rng.integers(0, cfg.vocab_size, size=(STEPS, B, 1)).astype(
         np.int32)
-    prefill = jax.jit(lambda p, t, s: JLM.quant_prefill(
-        p, qlayers, cfg, t, s, backend="xla"))
-    decode = jax.jit(lambda p, t, s: JLM.quant_decode_step(
-        p, qlayers, cfg, t, s, backend="xla"))
+    state0 = JLM.init_quant_decode_state(qlayers, B)
+    prefill, decode = compile_all([
+        (jax.jit(lambda p, t, s: JLM.quant_prefill(
+            p, qlayers, cfg, t, s, backend="xla")),
+         (params, jnp.asarray(prompt), state0)),
+        (jax.jit(lambda p, t, s: JLM.quant_decode_step(
+            p, qlayers, cfg, t, s, backend="xla")),
+         (params, jnp.asarray(forced[0]), state0))])
 
     j_state = JLM.init_quant_decode_state(qlayers, B)
     t_state = TLM.init_quant_decode_state(t_qlayers, B)

@@ -4,10 +4,13 @@ For every LSTM topology variant the SAME quantized layer (the reference's
 ``(arrays, spec)`` carried across by ``qlayers_from_numpy``) and the same
 int8 input go through both packages.  Outputs and every state leaf must be
 equal.  The reference cases come from the live builders in
-``repro.testing.golden``, never from the committed golden files.
+``repro.testing.golden``, never from the committed golden files.  The
+reference's programs for the whole module are traced and compiled together
+(``run_compiled``), the first test that needs one paying for all.
 """
 import dataclasses
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -41,6 +44,58 @@ def _case(variant):
     return xs_q, arrays, spec, t_arrays, t_spec
 
 
+def compile_all(jobs, threads=3):
+    """The jitted ``fn``s of ``jobs`` (``(fn, example args)`` pairs),
+    compiled: each traced and lowered here in turn while XLA compiles the
+    ones before on a few threads (its compiles release the GIL), so a
+    module's reference programs cost about their tracing, not tracing plus
+    compiling."""
+    with ThreadPoolExecutor(threads) as pool:
+        pending = [pool.submit(fn.lower(*args).compile) for fn, args in jobs]
+        return [future.result() for future in pending]
+
+
+def run_compiled(jobs, threads=3):
+    """``[fn(*args) for fn, args in jobs]``, compiled by ``compile_all``."""
+    return [program(*args) for program, (_, args) in
+            zip(compile_all(jobs, threads), jobs)]
+
+
+MASKED = (JL.ALL_VARIANTS[0], JL.ALL_VARIANTS[7], JL.ALL_VARIANTS[15])
+INTERPRET = (JL.ALL_VARIANTS[-1], JL.ALL_VARIANTS[12])
+
+
+def _valid(xs_q):
+    B, T = xs_q.shape[:2]
+    return np.array([T - 2, 0][:B] + [T] * max(B - 2, 0), np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _references():
+    """The reference's results for the tests below, computed together:
+    ``{("xla" | "interpret", variant): (ys, state)}`` of its layer and
+    ``{("masked", variant): (ys, state)}`` of its masked executor."""
+    keys, jobs = [], []
+    for backend, variants in (("xla", JL.ALL_VARIANTS),
+                              ("interpret", INTERPRET)):
+        for variant in variants:
+            xs_q, arrays, spec, _, _ = _case(variant)
+            keys.append((backend, variant))
+            jobs.append((jax.jit(
+                lambda a, x, spec=spec, backend=backend:
+                JQL.quant_recurrent_layer(a, spec, x, backend=backend)),
+                (arrays, xs_q)))
+    for variant in MASKED:
+        xs_q, arrays, spec, _, _ = _case(variant)
+        keys.append(("masked", variant))
+        jobs.append((jax.jit(
+            lambda a, x, s, v, spec=spec: jops.quant_recurrent_seq_masked(
+                a, spec, x, s, v, backend="xla")),
+            (arrays, xs_q, JQL.initial_recurrent_state(spec, xs_q.shape[0]),
+             jnp.asarray(_valid(xs_q)))))
+    return dict(zip(keys, run_compiled(jobs)))
+
+
 def _eq(t, j):
     np.testing.assert_array_equal(t.numpy().astype(np.int64),
                                   np.asarray(j).astype(np.int64))
@@ -49,9 +104,7 @@ def _eq(t, j):
 @pytest.mark.parametrize("variant", JL.ALL_VARIANTS, ids=lambda v: v.name)
 def test_variant_layer_matches_reference(variant):
     xs_q, arrays, spec, t_arrays, t_spec = _case(variant)
-    run = jax.jit(lambda a, x: JQL.quant_recurrent_layer(
-        a, spec, x, backend="xla"))
-    ys, state = run(arrays, xs_q)
+    ys, state = _references()[("xla", variant)]
     t_ys, t_state = TQL.quant_recurrent_layer(
         t_arrays, t_spec, torch.from_numpy(np.array(xs_q)))
     _eq(t_ys, ys)
@@ -61,14 +114,11 @@ def test_variant_layer_matches_reference(variant):
     assert t_spec.variant.name == variant.name
 
 
-@pytest.mark.parametrize("variant", [JL.ALL_VARIANTS[-1], JL.ALL_VARIANTS[12]],
-                         ids=lambda v: v.name)
+@pytest.mark.parametrize("variant", INTERPRET, ids=lambda v: v.name)
 def test_variant_layer_matches_interpret_kernel(variant):
     """Against the reference's own Pallas sequence kernel (interpret mode)."""
     xs_q, arrays, spec, t_arrays, t_spec = _case(variant)
-    run = jax.jit(lambda a, x: JQL.quant_recurrent_layer(
-        a, spec, x, backend="interpret"))
-    ys, (h, c) = run(arrays, xs_q)
+    ys, (h, c) = _references()[("interpret", variant)]
     t_ys, (th, tc) = TQL.quant_recurrent_layer(
         t_arrays, t_spec, torch.from_numpy(np.array(xs_q)))
     _eq(t_ys, ys)
@@ -76,17 +126,12 @@ def test_variant_layer_matches_interpret_kernel(variant):
     _eq(tc, c)
 
 
-@pytest.mark.parametrize("variant", [JL.ALL_VARIANTS[0], JL.ALL_VARIANTS[7],
-                                     JL.ALL_VARIANTS[15]],
-                         ids=lambda v: v.name)
+@pytest.mark.parametrize("variant", MASKED, ids=lambda v: v.name)
 def test_masked_matches_reference_and_prefix(variant):
     xs_q, arrays, spec, t_arrays, t_spec = _case(variant)
-    B, T = xs_q.shape[:2]
-    valid = np.array([T - 2, 0][:B] + [T] * max(B - 2, 0), np.int32)
-    state0 = JQL.initial_recurrent_state(spec, B)
-    ys, state = jax.jit(lambda a, x, s, v: jops.quant_recurrent_seq_masked(
-        a, spec, x, s, v, backend="xla"))(arrays, xs_q, state0,
-                                         jnp.asarray(valid))
+    B = xs_q.shape[0]
+    valid = _valid(xs_q)
+    ys, state = _references()[("masked", variant)]
     x_t = torch.from_numpy(np.array(xs_q))
     t_ys, t_state = TQL.quant_recurrent_layer(
         t_arrays, t_spec, x_t, valid_len=torch.from_numpy(valid))

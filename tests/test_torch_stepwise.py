@@ -6,7 +6,8 @@ layer (the reference's ``(arrays, spec)`` carried across by
 the port's ``quant_recurrent_seq_stepwise`` must equal the reference's
 (``backend="xla"``) in ``ys`` and every state leaf.  The cases come from
 the live builders in ``repro.testing.golden``, never from the committed
-golden files.  The per-gate executor is ``test_torch_layer_ref.py``.
+golden files; the reference's programs are traced and compiled together.
+The per-gate executor is ``test_torch_layer_ref.py``.
 """
 import dataclasses
 import functools
@@ -29,6 +30,7 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import quant_lstm as TQL  # noqa: E402
+from test_torch_recurrent import run_compiled  # noqa: E402
 
 # The suite runs in several test processes that share the machine's cores;
 # one intra-op thread per process keeps torch from oversubscribing them.
@@ -52,13 +54,26 @@ def _eq(t, j):
                                   np.asarray(j).astype(np.int64))
 
 
+@functools.lru_cache(maxsize=None)
+def _references():
+    """The reference's stepwise executor on every variant's case, its
+    programs traced and compiled together (``run_compiled``)."""
+    variants = JL.ALL_VARIANTS + JG.ALL_VARIANTS
+    jobs = []
+    for variant in variants:
+        xs_q, arrays, spec, _, _ = _case(variant)
+        state0 = JQL.initial_recurrent_state(spec, xs_q.shape[0])
+        jobs.append((jax.jit(
+            lambda a, x, s, spec=spec: jops.quant_recurrent_seq_stepwise(
+                a, spec, x, s, backend="xla")), (arrays, xs_q, state0)))
+    return dict(zip(variants, run_compiled(jobs)))
+
+
 def _stepwise(variant):
     """(port result, reference result) of the stepwise executor."""
     xs_q, arrays, spec, t_arrays, t_spec = _case(variant)
     x_t = torch.from_numpy(np.array(xs_q))
-    state0 = JQL.initial_recurrent_state(spec, xs_q.shape[0])
-    want = jax.jit(lambda a, x, s: jops.quant_recurrent_seq_stepwise(
-        a, spec, x, s, backend="xla"))(arrays, xs_q, state0)
+    want = _references()[variant]
     before = serve.launch_counts()
     got = tops.quant_recurrent_seq_stepwise(
         t_arrays, t_spec, x_t,
