@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gemm-times SRC TAG  # kernel 1 alone, see below
 
 1. builds the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    each, in parallel, beside the header check of step 2) and prints the
@@ -10,8 +11,12 @@
    the port's PyTorch fixed point: tanh/sigmoid on every int16 input for
    integer_bits 0..15, the LayerNorm rsqrt multiplier, MBQM;
 3. holds the int8 GEMM kernel bit for bit against its plain version on the
-   card at the serving shapes (M in {B, B*T}, K in {2048, 640}, N = 8192),
-   ragged shapes and the int8/int16 epilogues;
+   card at the cases of ``repro_torch.testing.gemm_checks``: every shape the
+   serving paths launch, one case for each kernel instance and split of K
+   the plan picks (both forms: weight-streaming at M <= 32, tensor-core
+   above), the three epilogues under a split, ragged and byte-copied
+   shapes, M 1, 16, 17, 20, 32, 33, 128, 129, and the all -128 extremes
+   split and unsplit, each launched twice back to back;
 4. holds the fused LSTM cell kernel against its plain version at (B, H) in
    {(8, 256), (16, 1024), (4, 2048)} x CIFG on/off x cell formats Q0/Q2/Q4,
    and its peephole o gate with and without the in-fusion LayerNorm at
@@ -87,9 +92,11 @@
    where no kernel may launch (decode never reaches flash attention);
 11. times each kernel with CUDA events (L2 flushed, the card held busy while
    the host enqueues the call, so the span is device time) beside its plain
-   version, its bound and, for the GEMM, torch._int_mm (for flash
-   attention, at the prefill's layer shape, scaled_dot_product_attention);
-   and the sequence kernels' grid barrier alone;
+   version, its bound and, for the GEMM, torch._int_mm (at M <= 16, where
+   it refuses, on x zero-padded to 32 rows under its own key) at every
+   shape the main paths launch (for flash attention, at the prefill's layer
+   shape, scaled_dot_product_attention); and the sequence kernels' grid
+   barrier alone;
 12. prints the card's name and power limit, the kernels' JSON line and, as
    the last line, ``{"ok": true, "device": {...}}``.
 
@@ -97,9 +104,14 @@ Every launch counter is set to 0 just before each served path (the two
 static serves, the stepwise pass, the two engine runs, the transformer's
 prefill and its two static serves) and read just after it; a kernel of the
 path that did not launch fails the run.  The kernels' JSON line counts each
-kernel's launches over the engine runs and the stepwise pass, and kernel
-5's over the transformer's prefill.  Each phase prints its
+kernel's launches over the engine runs and the stepwise pass (the GEMM's
+also by shape), and kernel 5's over the transformer's prefill.  Each phase prints its
 seconds.
+
+``--gemm-times SRC TAG`` builds and times kernel 1 alone (step 11's GEMM
+shapes) from the port under ``SRC``: ``src`` of this checkout, or of an
+earlier revision unpacked beside it with ``git archive``, so that two
+revisions' kernels are timed in one call on one card.
 
 Any mismatch, build failure or launch error raises, and the script exits
 non-zero without the last line.  Without a CUDA device it fails at once.
@@ -138,6 +150,22 @@ PREFILL_B, PREFILL_S = 2, 4096
 SERVE_B, SERVE_PROMPT, SERVE_MAX_LEN = 4, 32, 256
 FLASH_TIMED = dict(B=2, H=32, KVH=8, S=4096, D=128)  # causal, bf16
 BARRIER_CTAS = 128  # the sequence kernels' grid at full width
+
+
+def _gemm_timed():
+    import torch
+
+    i32, i8 = torch.int32, torch.int8
+    # (M, K, N, out): the static prefill's and decode's input stages of
+    # lstm-rnnt (K 2048 at layer 0, then 640) and gru-rnnt (N 6144), and
+    # what else the main paths launch: the stepwise projection (int8 out),
+    # the engine chunk (M 16, both models) and the GRU's speculative verify
+    # (M 20)
+    return ((B * T, 2048, 8192, i32), (B * T, 640, 8192, i32),
+            (B, 2048, 8192, i32), (B, 640, 8192, i32),
+            (B * T, 2048, 6144, i32), (B, 2048, 6144, i32),
+            (B, 2048, 640, i8), (16, 640, 8192, i32), (16, 2048, 6144, i32),
+            (20, 2048, 6144, i32), (16, 2048, 8192, i32))
 
 
 def log(*args):
@@ -221,34 +249,46 @@ def gemm_operands(M, K, N, gen, dev):
 
 
 def check_gemm(dev):
+    """Kernel 1 against its plain version, bit for bit, at every case of
+    ``repro_torch.testing.gemm_checks`` (each kernel instance and split of
+    K the plan picks, the three epilogues under a split, ragged and
+    byte-copied shapes, the serving shapes), the all -128 extremes at a
+    weight-streaming and a tensor-core shape, each launched twice back to
+    back; logs the plans the cases reached and returns the largest
+    |difference| (0)."""
     import torch
     from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.kernels.scan_plan import sm_count
+    from repro_torch.testing import gemm_checks as GC
 
     gen = torch.Generator(device=dev).manual_seed(11)
+    n_sm = sm_count(dev.index or 0)
     err = 0
-    cases = [(m, k, 8192, torch.int32) for m in (B, B * T) for k in (2048, 640)]
-    cases += [(1, 1, 1, torch.int32), (5, 37, 130, torch.int32),
-              (129, 641, 8191, torch.int32), (33, 2047, 100, torch.int32),
-              (B * T, 640, 8192, torch.int8), (B, 2048, 8192, torch.int16),
-              (7, 99, 61, torch.int8), (65, 70, 129, torch.int16),
-              (129, 640, 8192, torch.int32), (13, 2048, 8192, torch.int8),
-              (4, 48, 80, torch.int16), (100, 272, 208, torch.int32)]
-    for M, Kd, N, odt in cases:
+    plans = set()
+    for M, Kd, N, odt in GC.CASES:
         x, w, fold, m0, shift = gemm_operands(M, Kd, N, gen, dev)
         got = K1.int8_matmul(x, w, fold, m0, shift, out_dtype=odt, zp_out=3)
         want = K1.int8_matmul_plain(x, w, fold, m0, shift, out_dtype=odt,
                                     zp_out=3)
         err = max(err, require_equal(f"int8_matmul {M}x{Kd}x{N} {odt}",
                                      got, want))
-    # the extreme accumulation of a full-depth int8 product (2**25)
-    x = torch.full((B, 2048), -128, dtype=torch.int8, device=dev)
-    w = torch.full((2048, 8192), -128, dtype=torch.int8, device=dev)
-    fold = torch.zeros(8192, dtype=torch.int32, device=dev)
-    err = max(err, require_equal("int8_matmul extremes",
-                                 K1.int8_matmul(x, w, fold),
-                                 K1.int8_matmul_plain(x, w, fold)))
+        p = K1.gemm_plan(M, N, Kd, n_sm)
+        plans.add((p.form, p.bm, p.bn, p.split))
+    # the extreme accumulation of a full-depth int8 product (2**25), split
+    # and unsplit, twice back to back
+    for M, Kd, N in ((B, 2048, 8192), (B * T, 2048, 8192)):
+        x, w, fold = GC.extreme_operands(M, Kd, N, dev)
+        want = K1.int8_matmul_plain(x, w, fold)
+        first = K1.int8_matmul(x, w, fold)
+        second = K1.int8_matmul(x, w, fold)
+        err = max(err, require_equal(f"int8_matmul extremes {M}x{Kd}x{N}",
+                                     first, want))
+        err = max(err, require_equal(f"int8_matmul extremes {M}x{Kd}x{N}, "
+                                     "second launch", second, want))
     torch.cuda.synchronize()
-    log(f"[check] int8_matmul: {len(cases) + 1} shapes bit-exact vs plain")
+    log(f"[check] int8_matmul: {len(GC.CASES) + 2} shapes bit-exact vs "
+        f"plain, {len(plans)} (form, bm, bn, split) plans on {n_sm} SMs: "
+        f"{sorted(plans)}")
     return err
 
 
@@ -644,6 +684,7 @@ def stepwise_full_width(dev, model, repeats=3):
         serve.reset_launch_counts()
         step, step_s = timed_pass(qlayers, x, ops.quant_recurrent_seq_stepwise)
         counts = serve.launch_counts()
+        by_shape = gemm_shape_counts()
         expect = {k: sum(step_kernel_counts(spec, T)[k] for _, spec in qlayers)
                   for k in counts}
         path_launches(f"stepwise {cfg.name}", counts, expect)
@@ -681,7 +722,8 @@ def stepwise_full_width(dev, model, repeats=3):
     log(f"[stepwise] {cfg.name} profiled stepwise layers 0-1: device busy "
         f"{busy_ms} ms of {prof_wall_s * 1e3:.1f} ms wall (busy share "
         f"{share})")
-    return {"arch": cfg.name, "launches": counts, "prompt_tok_s": tok_s,
+    return {"arch": cfg.name, "launches": counts,
+            "gemm_launches_by_shape": by_shape, "prompt_tok_s": tok_s,
             "first_pass_s": {"stepwise": step_s, "hoisted": hoisted_s},
             "profiled": {"device_busy_ms": busy_ms, "wall_s": prof_wall_s,
                          "busy_share": share}}
@@ -721,6 +763,15 @@ def compare_states(what, got, want):
     for key in want:
         for i, (g, w) in enumerate(zip(got[key], want[key], strict=True)):
             require_equal(f"{what} layer {i} {key}", g, w)
+
+
+def gemm_shape_counts():
+    """Kernel 1's launches since the last reset, by shape:
+    ``{"M4 K2048 N8192 int32": n, ...}``."""
+    from repro_torch.kernels import int8_matmul as K1
+
+    return {f"M{m} K{k} N{n} {dt}": c for (m, k, n, dt), c
+            in sorted(K1.launches_by_shape.items())}
 
 
 def path_launches(what, counts, expect):
@@ -832,6 +883,7 @@ def engine_full_width(model, policy, oversubscribe, speculate):
     serve.reset_launch_counts()
     results, stats = run()
     counts = serve.launch_counts()
+    by_shape = gemm_shape_counts()
     what = f"engine {cfg.name} {policy}"
     expect = {"int8_matmul": None, SCAN_OF[lstm_lm.rnn_cell(cfg)]: None}
     path_launches(what, counts, expect)
@@ -880,6 +932,7 @@ def engine_full_width(model, policy, oversubscribe, speculate):
     return {"arch": cfg.name, "policy": policy, "oversubscribe": oversubscribe,
             "speculate": speculate, "chunk": ENGINE["chunk"],
             "arrival_span": ENGINE["arrival_span"], "launches": counts,
+            "gemm_launches_by_shape": by_shape,
             "steps": stats.steps, "wall_s": stats.wall_s,
             "tokens_per_s": stats.tokens_per_s,
             "generated_tokens": stats.generated_tokens,
@@ -955,34 +1008,70 @@ def time_scan(dev, layer, name, flush):
     return rows
 
 
-def time_kernels(dev, lstm_layer, gru_layer):
+def time_gemm(dev, flush):
+    """Device ms of kernel 1 at ``_gemm_timed()`` beside its host enqueue, its
+    plain version, its bound and ``torch._int_mm`` (``library_ms``, where
+    it runs: M > 16); at M <= 16 also ``_int_mm`` on x zero-padded to 32
+    rows (``int_mm_pad32_ms``), the nearest library call, which is not the
+    same function (the padding is made outside the timed call)."""
     import torch
     from repro_torch.kernels import int8_matmul as K1
 
-    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(5)
-    gemm = []
-    for M, Kd, N in ((B * T, 2048, 8192), (B * T, 640, 8192),
-                     (B, 2048, 8192), (B, 640, 8192), (B * T, 2048, 6144),
-                     (B, 2048, 6144)):
-        x, w, fold, _, _ = gemm_operands(M, Kd, N, gen, dev)
-        row = {"M": M, "K": Kd, "N": N}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = getattr(K1, "gemm_plan", None)  # None in an earlier revision
+    # this method's floor: one launch that does no work to speak of (a
+    # one-element PyTorch add), timed the same way
+    tiny = torch.zeros(1, device=dev)
+    floor_ms, _ = cold_ms(lambda: tiny.add_(1), 50, flush)
+    log(f"[time] launch floor of cold_ms (a one-element add): "
+        f"{floor_ms:.4f} ms")
+    rows = []
+    for M, Kd, N, odt in _gemm_timed():
+        x, w, fold, m0, shift = gemm_operands(M, Kd, N, gen, dev)
+        kw = dict(out_dtype=odt, zp_out=3)
+        p = plan(M, N, Kd, n_sm) if plan else None
+        row = {"M": M, "K": Kd, "N": N, "out": str(odt).split(".")[-1],
+               "plan": p._asdict() if p else None,
+               "ctas": p.split * p.tiles_m * p.tiles_n if p else None,
+               "launch_floor_ms": floor_ms}
         row["ms"], row["host_ms"] = cold_ms(
-            lambda: K1.int8_matmul(x, w, fold), 50, flush)
+            lambda: K1.int8_matmul(x, w, fold, m0, shift, **kw), 50, flush)
         row["plain_ms"], _ = cold_ms(
-            lambda: K1.int8_matmul_plain(x, w, fold), 10, flush)
-        if M > 16 and Kd % 8 == 0 and N % 8 == 0:
+            lambda: K1.int8_matmul_plain(x, w, fold, m0, shift, **kw), 10,
+            flush)
+        row["library_ms"] = row["int_mm_pad32_ms"] = None
+        if M > 16:
             row["library_ms"], _ = cold_ms(lambda: torch._int_mm(x, w), 50,
                                            flush)
-        else:
-            row["library_ms"] = None  # torch._int_mm refuses M <= 16
+        else:  # torch._int_mm refuses M <= 16
+            xp = torch.zeros((32, Kd), dtype=torch.int8, device=dev)
+            xp[:M] = x
+            row["int_mm_pad32_ms"], _ = cold_ms(
+                lambda: torch._int_mm(xp, w), 50, flush)
+        out_bytes = M * N * torch.empty((), dtype=odt).element_size()
+        epi_bytes = 4 * N + (8 * N if odt != torch.int32 else 0)
         row["bound_ms"], row["bound_by"] = bound(
-            M * Kd + Kd * N + 4 * N + 4 * M * N, 2 * M * N * Kd)
-        gemm.append(row)
-        log(f"[time] int8_matmul {M}x{Kd}x{N}: {row['ms']:.4f} ms (host "
-            f"enqueue {row['host_ms']:.4f} ms), plain {row['plain_ms']:.4f} "
-            f"ms, _int_mm {row['library_ms']}, bound {row['bound_ms']:.4f} "
-            f"ms ({row['bound_by']})")
+            M * Kd + Kd * N + epi_bytes + out_bytes, 2 * M * N * Kd)
+        rows.append(row)
+        lib = (f"_int_mm {row['library_ms']:.4f}" if row["library_ms"]
+               else f"_int_mm on 32 padded rows {row['int_mm_pad32_ms']:.4f}")
+        log(f"[time] int8_matmul {M}x{Kd}x{N} {row['out']}: {row['ms']:.4f} "
+            f"ms (host enqueue {row['host_ms']:.4f} ms), plain "
+            f"{row['plain_ms']:.4f} ms, {lib} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})" + (
+                f"; plan form {p.form} {p.bm}x{p.bn} split {p.split}, "
+                f"{row['ctas']} CTAs, {p.stages} stages, {p.smem} B shared"
+                if p else ""))
+    torch.cuda.synchronize()
+    return rows
+
+
+def time_kernels(dev, lstm_layer, gru_layer):
+    import torch
+
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+    gemm = time_gemm(dev, flush)
     return (gemm, time_scan(dev, lstm_layer, "quant_lstm_scan", flush),
             time_scan(dev, gru_layer, "quant_gru_scan", flush),
             time_cell_kernels(dev, lstm_layer[1], flush))
@@ -1368,6 +1457,40 @@ def time_barrier(dev, n_barriers=2000, repeats=5):
     return {"ctas": BARRIER_CTAS, "us": us, "repeats_us": per}
 
 
+def gemm_times(src, tag):
+    """``--gemm-times SRC TAG``: kernel 1 alone, built from the port under
+    ``SRC`` (this checkout's ``src``, or an earlier revision's unpacked
+    beside it), timed by ``time_gemm``; so two revisions' kernels are set
+    side by side in one call on one card.  Writes
+    ``chiprun_out/gemm_times_<TAG>.json``."""
+    sys.path.insert(0, os.path.abspath(src))
+    import torch
+    import repro_torch
+    from repro_torch.kernels import build
+
+    log(f"[gemm-times] {tag}: repro_torch from "
+        f"{os.path.dirname(repro_torch.__file__)} on "
+        f"{torch.cuda.get_device_name(0)}")
+    log(f"[build] {build.build_all(['int8_matmul'])}")
+    for line in build.build_log("int8_matmul").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+    rows = time_gemm(dev, flush)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"gemm_times_{tag}.json"),
+              "w") as f:
+        json.dump({"gpu": smi, "src": os.path.abspath(src), "rows": rows},
+                  f, indent=1)
+    log(smi)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1375,6 +1498,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing is run on the CPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--gemm-times"]:
+        if len(sys.argv) != 4:
+            print("usage: chip_smoke.py --gemm-times SRC TAG", file=sys.stderr)
+            return 2
+        return gemm_times(*sys.argv[2:4])
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as KF
     from repro_torch.kernels import int8_matmul as K1
@@ -1440,14 +1568,24 @@ def main() -> int:
                 + stepwise["launches"][name] for name in stepwise["launches"]}
     # kernel 5's main path: the long-prompt prefill of the transformer
     launches["flash_attention"] = prefill["launches"]["flash_attention"]
+    gemm_by_shape = {}
+    for path in engines + [stepwise]:
+        for shape, n in path["gemm_launches_by_shape"].items():
+            gemm_by_shape[shape] = gemm_by_shape.get(shape, 0) + n
+    if sum(gemm_by_shape.values()) != launches["int8_matmul"]:
+        raise AssertionError(f"int8_matmul launches by shape {gemm_by_shape}"
+                             f" do not add up to {launches['int8_matmul']}")
+    log(f"[launches] int8_matmul by shape over the engines and the "
+        f"stepwise pass: {gemm_by_shape}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     kernels = [
-        kernel_entry("int8_matmul", K1, launches["int8_matmul"], err1,
-                     gemm[0], "M=B*T=128 K=2048 N=8192 int32 out (LSTM "
-                     "layer-0 prefill)", gemm),
+        dict(kernel_entry("int8_matmul", K1, launches["int8_matmul"], err1,
+                          gemm[0], "M=B*T=128 K=2048 N=8192 int32 out (LSTM "
+                          "layer-0 prefill)", gemm),
+             launches_by_shape=gemm_by_shape),
         kernel_entry("quant_lstm_scan", K2, launches["quant_lstm_scan"],
                      err2, scan[0], "B=4 T=32 H=2048 d_proj=640 "
                      "LN+projection (prefill layer)", scan),

@@ -44,4 +44,14 @@ PACK_HD void transpose4(int a, int b, int c, int d, int out[4]) {
   out[3] = __byte_perm(ab_hi, cd_hi, 0x7632);
 }
 
+// A transposing ldmatrix over 16-bit elements of a row-major int8 matrix
+// gives a lane two words, each holding two rows of a pair of adjacent
+// columns n, n + 1: lo = (k, n) (k, n+1) (k+1, n) (k+1, n+1) as bytes 0..3,
+// hi the same for rows k + 2, k + 3.  out[0] packs column n's 4 values
+// (k .. k + 3), out[1] column n + 1's.
+PACK_HD void split_pairs(int lo, int hi, int out[2]) {
+  out[0] = __byte_perm(lo, hi, 0x6420);
+  out[1] = __byte_perm(lo, hi, 0x7531);
+}
+
 }  // namespace pack

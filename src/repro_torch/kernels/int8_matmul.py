@@ -4,24 +4,73 @@ Port of ``repro.kernels.int8_matmul.int8_matmul_pallas``.  ``int8_matmul``
 launches ``csrc/int8_matmul.cu`` for CUDA tensors and takes
 ``int8_matmul_plain`` for CPU tensors; there is no other fallback.  Unlike
 the TPU kernel it takes ragged M, N and K (masked inside the kernel).
+
+How a launch is laid out (the weight-streaming form for M <= 32, the
+tensor-core form above; tiles, split of K, ring, shared memory) is decided
+once, by ``gemm::plan`` in ``csrc/gemm_plan.cuh``; the library exports it
+as ``int8_matmul_plan`` and ``gemm_plan`` reads it there, so a shape the
+kernel cannot take raises here.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..core import fixedpoint as fp
 from ..core import integer_ops as iops
 from . import build
+from .scan_plan import sm_count
 
 SOURCE = "src/repro_torch/csrc/int8_matmul.cu"
 REPLACES = "src/repro/kernels/int8_matmul.py:76"
 
 launches = 0  # kernel launches since the last reset (plain calls not counted)
+# the same launches by (M, K, N, out dtype name); cleared with `launches`
+# by ``launch.serve.reset_launch_counts``
+launches_by_shape: collections.Counter = collections.Counter()
 
 _OUT_KIND = {torch.int32: 0, torch.int8: 1, torch.int16: 2}
+
+
+class GemmPlan(NamedTuple):
+    """``form`` 0 weight-streaming, 1 tensor-core; output tiles of ``bm`` x
+    ``bn`` on ``threads`` threads, a grid of ``split`` x ``tiles_m`` x
+    ``tiles_n`` CTAs (the ``split`` CTAs of a tile share K's ``steps`` of
+    64 and form one cluster), a ring of ``stages`` slabs, ``smem`` bytes of
+    shared memory a CTA."""
+    form: int
+    bm: int
+    bn: int
+    threads: int
+    tiles_m: int
+    tiles_n: int
+    split: int
+    steps: int
+    stages: int
+    smem: int
+
+
+PLAN_ERRORS = {1: "shapes the kernel does not take",
+               2: "more shared memory than one SM holds (227 KB)"}
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(M: int, N: int, K: int, n_sm: int) -> GemmPlan:
+    """The plan the kernel library exports for (M, N, K) on ``n_sm`` SMs;
+    raises ``ValueError`` where it refuses the shape."""
+    fn = build.load("int8_matmul").int8_matmul_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 10)()
+    err = fn(M, N, K, n_sm, ctypes.addressof(out))
+    if err:
+        raise ValueError(f"int8_matmul: no plan for M={M} N={N} K={K}: "
+                         f"{PLAN_ERRORS.get(err, f'plan error {err}')}")
+    return GemmPlan(*out)
 
 
 def int8_matmul_plain(x_q, w_q, fold, m0=None, shift=None, *,
@@ -68,9 +117,12 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, fold: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0 or N == 0:
         return out
+    n_sm = sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+    gemm_plan(M, N, K, n_sm)  # raises where the kernel cannot take the shape
     lib = build.load("int8_matmul")
     fn = lib.int8_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def ptr(t):
@@ -80,8 +132,9 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, fold: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x_q.data_ptr(), w_q.data_ptr(), fold.data_ptr(), ptr(m0),
                  ptr(shift), out.data_ptr(), M, N, K, _OUT_KIND[out_dtype],
-                 int(zp_out), stream)
+                 int(zp_out), n_sm, stream)
     build.check(err, "int8_matmul")
     global launches
     launches += 1
+    launches_by_shape[(M, K, N, str(out_dtype).removeprefix("torch."))] += 1
     return out

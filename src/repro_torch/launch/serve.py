@@ -58,6 +58,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+    int8_matmul.launches_by_shape.clear()
 
 
 @dataclasses.dataclass

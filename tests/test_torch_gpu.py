@@ -20,25 +20,38 @@ def cuda():
 
 
 def test_int8_matmul_kernel_matches_plain(cuda):
+    """Every case of ``repro_torch.testing.gemm_checks`` (each kernel
+    instance and split of K the plan picks, the three epilogues under a
+    split, ragged and byte-copied shapes, the serving shapes) and the all
+    -128 extremes, split and unsplit: zero differing elements, one launch a
+    call, the same bits from a second launch at the same shape."""
     from repro_torch.kernels import int8_matmul as K1
+    from repro_torch.testing import gemm_checks as GC
 
     gen = torch.Generator(device=cuda).manual_seed(0)
-    for M, K, N, odt in ((3, 17, 5, torch.int32), (64, 640, 192, torch.int8),
-                         (65, 129, 63, torch.int16), (4, 2048, 256, torch.int32)):
-        x = torch.randint(-128, 128, (M, K), generator=gen, device=cuda,
-                          dtype=torch.int8)
-        w = torch.randint(-127, 128, (K, N), generator=gen, device=cuda,
-                          dtype=torch.int8)
-        fold = torch.randint(-1000, 1000, (N,), generator=gen, device=cuda,
-                             dtype=torch.int32)
-        m0 = torch.full((N,), 1 << 30, dtype=torch.int32, device=cuda)
-        shift = torch.full((N,), -9, dtype=torch.int32, device=cuda)
+
+    def ints(shape, lo, hi, dtype):
+        return torch.randint(lo, hi, shape, generator=gen, device=cuda,
+                             dtype=dtype)
+
+    for M, K, N, odt in GC.CASES:
+        x = ints((M, K), -128, 128, torch.int8)
+        w = ints((K, N), -127, 128, torch.int8)
+        fold = ints((N,), -(2**20), 2**20, torch.int32)
+        m0 = ints((N,), 1 << 30, 2**31 - 1, torch.int32)
+        shift = ints((N,), -20, 2, torch.int32)
         before = K1.launches
         got = K1.int8_matmul(x, w, fold, m0, shift, out_dtype=odt, zp_out=-3)
         assert K1.launches == before + 1
         want = K1.int8_matmul_plain(x, w, fold, m0, shift, out_dtype=odt,
                                     zp_out=-3)
-        assert torch.equal(got, want)
+        assert torch.equal(got, want), (M, K, N, odt)
+    for M, K, N in ((4, 2048, 8192), (128, 2048, 8192)):
+        x, w, fold = GC.extreme_operands(M, K, N, cuda)
+        want = K1.int8_matmul_plain(x, w, fold)
+        assert int(want[0, 0]) == K * 2**14
+        for _ in range(2):
+            assert torch.equal(K1.int8_matmul(x, w, fold), want), (M, K, N)
 
 
 @pytest.mark.parametrize("vi", [0, 5, 10, 15])
