@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gemm-times SRC TAG  # kernel 1 alone, see below
+    python3 chip_smoke.py --cell-times SRC TAG  # kernels 2 and 3 alone
+    python3 chip_smoke.py --serve-times SRC TAG  # the served paths' rates
 
 1. builds the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    each, in parallel, beside the header check of step 2) and prints the
@@ -17,11 +19,19 @@
    above), the three epilogues under a split, ragged and byte-copied
    shapes, M 1, 16, 17, 20, 32, 33, 128, 129, and the all -128 extremes
    split and unsplit, each launched twice back to back;
-4. holds the fused LSTM cell kernel against its plain version at (B, H) in
-   {(8, 256), (16, 1024), (4, 2048)} x CIFG on/off x cell formats Q0/Q2/Q4,
-   and its peephole o gate with and without the in-fusion LayerNorm at
-   H = 2048; and the integer LayerNorm kernel at row lengths 1..16384 with
-   constant rows (V = 0) and rows at the int16 extremes;
+4. holds the fused LSTM cell kernel's TPU-contract entry against its plain
+   version at (B, H) in {(8, 256), (16, 1024), (4, 2048)} x CIFG on/off x
+   cell formats Q0/Q2/Q4, and its peephole o gate with and without the
+   in-fusion LayerNorm; the integer LayerNorm kernel's TPU-contract entry at
+   row lengths 1..16384 with constant rows (V = 0) and rows at the int16
+   extremes; then the two step entries (``repro_torch.testing.kernel_cases.
+   step_cases``): the gate pass (kernel 2 forming and normalising a step's
+   gates from its accumulators) and the cell's step entry (kernel 3 forming
+   the rest) at (B, H) in {(8, 256), (16, 1024), (4, 2048), (4, 1001),
+   (2, 16384)} x LN x peephole x CIFG, with int32-extreme and constant
+   rows, and the LN + peephole layer at the shapes of ``CLUSTER_SHAPES``,
+   so each row form splits a row over every cluster size 1..8, every case
+   launched twice back to back, all bit for bit;
 5. holds the LSTM sequence kernel (one cooperative grid per call, the
    layer's weights split over the CTAs' shared memory) against its plain
    version: all 16 LSTM variants at small widths, then a full-width
@@ -36,9 +46,9 @@
    LN layer (d_in = H = 2048) and an LN layer at H = 1001, at T = 32 and
    T = 1, B = 1, 4 and 16;
 7. holds the stepwise executor (per LSTM step: the GEMM for the input, the
-   recurrent product and the projection, one LayerNorm kernel per gate,
-   the cell kernel; per GRU step: the GEMM and the GRU kernel over one
-   timestep) against the hoisted kernels: all 16 LSTM variants at the
+   recurrent product and the projection, for an LN layer the gate pass,
+   the cell's step entry; per GRU step: the GEMM and the GRU kernel over
+   one timestep) against the hoisted kernels: all 16 LSTM variants at the
    golden cases' widths (and the per-gate executor), a full-width
    LN+projection+peephole layer, both GRU variants and the full-width GRU
    layer; each call's launches must be exactly those of its steps;
@@ -64,12 +74,14 @@
 9. runs a 4 x 32 prompt through all 10 layers of full-width ``lstm-rnnt``
    with the stepwise executor (``quantize_input -> stepwise ->
    dequantize_output``): the cell kernel must launch exactly 10 x 32
-   times, the LayerNorm kernel 4 x 10 x 32, the GEMM 3 x 10 x 32, the
-   sequence kernels never; every layer's ys and state must equal the
+   times, the LayerNorm kernel (the gate pass) 10 x 32, the GEMM 3 x 10 x
+   32, the sequence kernels never; every layer's ys and state must equal the
    hoisted path, and layer 0 the per-gate executor; prompt tokens/s of
    both executors (the comparison of ``benchmarks/prefill_throughput.py``)
    and the device's busy share over two stepwise layers under the
-   profiler;
+   profiler, where the port's kernels must run exactly 5 times a step and
+   every other device op fewer times than there are steps (no PyTorch op
+   between a step's kernels);
 10. serves 12 requests through the continuous-batching engine on each
    full-width model (4 slots, chunked prefill K = 4; gru-rnnt with
    arrivals staggered over 8 steps; gru-rnnt with speculation k = 4 under
@@ -95,8 +107,10 @@
    version, its bound and, for the GEMM, torch._int_mm (at M <= 16, where
    it refuses, on x zero-padded to 32 rows under its own key) at every
    shape the main paths launch (for flash attention, at the prefill's layer
-   shape, scaled_dot_product_attention); and the sequence kernels' grid
-   barrier alone;
+   shape, scaled_dot_product_attention; for kernels 2 and 3, the step
+   entries and the TPU-contract entries at B 4, H 2048, beside the
+   method's launch floor, and launches x (ms - bound) over the stepwise
+   pass); and the sequence kernels' grid barrier alone;
 12. prints the card's name and power limit, the kernels' JSON line and, as
    the last line, ``{"ok": true, "device": {...}}``.
 
@@ -111,7 +125,11 @@ seconds.
 ``--gemm-times SRC TAG`` builds and times kernel 1 alone (step 11's GEMM
 shapes) from the port under ``SRC``: ``src`` of this checkout, or of an
 earlier revision unpacked beside it with ``git archive``, so that two
-revisions' kernels are timed in one call on one card.
+revisions' kernels are timed in one call on one card.  ``--cell-times SRC
+TAG`` does the same for kernels 2 and 3 (step 11's rows, the step entries
+where the revision has them), and ``--serve-times SRC TAG`` for the
+host-clock rates of the static serves, the stepwise pass and the engine
+runs of steps 8-10, with the tokens each served (no checks).
 
 Any mismatch, build failure or launch error raises, and the script exits
 non-zero without the last line.  Without a CUDA device it fails at once.
@@ -553,25 +571,61 @@ def check_cell_kernels(dev):
         "bit-exact vs plain")
     log(f"[check] int_layernorm: n in 1..16384 ({n_ln} row lengths, "
         "constant and int16-extreme rows) bit-exact vs plain")
+    # the step entries: each case launched twice back to back
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gate_cases, cell_step_cases = KCASES.step_cases(dev, seed=40)
+    clusters = {"int_layernorm_gates": set(), "quant_lstm_cell_step": set()}
+    for label, kw in gate_cases:
+        want = KL.int_layernorm_gates_plain(**kw)
+        for i in range(2):
+            err_l = max(err_l, require_equal(
+                f"int_layernorm_gates {label} (launch {i})",
+                KL.int_layernorm_gates(**kw), want))
+        spec = kw["spec"]
+        clusters["int_layernorm_gates"].add(KL.ln_plan(
+            kw["acc_x"].shape[0], len(spec.variant.gates), spec.cfg_d_hidden,
+            n_sm).C)
+    for label, kw in cell_step_cases:
+        want = KC.quant_lstm_cell_step_plain(**kw)
+        for i in range(2):
+            got = KC.quant_lstm_cell_step(**kw)
+            err_c = max(err_c, require_equal(
+                f"quant_lstm_cell_step {label} m (launch {i})", got[0],
+                want[0]), require_equal(
+                f"quant_lstm_cell_step {label} c (launch {i})", got[1],
+                want[1]))
+        spec = kw["spec"]
+        if spec.use_layernorm and spec.use_peephole:
+            clusters["quant_lstm_cell_step"].add(KL.ln_plan(
+                kw["c_q"].shape[0], 1, spec.cfg_d_hidden, n_sm, 2).C)
+    torch.cuda.synchronize()
+    for entry, sizes in clusters.items():
+        if sizes != set(range(1, 9)):
+            raise AssertionError(f"{entry}: the cases split a row over "
+                                 f"{sorted(sizes)} CTAs, not 1..8")
+    log(f"[check] int_layernorm_gates (the gate pass): {len(gate_cases)} "
+        f"cases and quant_lstm_cell_step: {len(cell_step_cases)} cases, "
+        f"(B, H) in {KCASES.STEP_SHAPES} x LN x peephole x CIFG and the "
+        f"LN + peephole layer at {KCASES.CLUSTER_SHAPES} (rows split over "
+        "1..8 CTAs in each row form), each launched twice: bit-exact vs "
+        "plain")
     return err_c, err_l
 
 
 def step_kernel_counts(spec, steps):
     """Launches one stepwise layer of ``steps`` timesteps makes: per LSTM
-    step the input, recurrent (and projection) GEMMs, one LayerNorm per
-    gate normalised outside the cell, one cell; per GRU step the input
-    GEMM and the GRU kernel over one timestep."""
+    step the input, recurrent (and projection) GEMMs, the gate pass (one
+    LayerNorm launch) where the layer has LN, one cell; per GRU step the
+    input GEMM and the GRU kernel over one timestep."""
     from repro_torch.launch import serve
 
     counts = {name: 0 for name in serve.KERNELS}
     if spec.cell == "gru":
         counts.update(int8_matmul=steps, quant_gru_scan=steps)
         return counts
-    n_ln = 0
-    if spec.use_layernorm:
-        n_ln = len(spec.variant.gates) - int(spec.use_peephole)
     counts.update(int8_matmul=steps * (2 + int(spec.use_projection)),
-                  int_layernorm=steps * n_ln, quant_lstm_cell=steps)
+                  int_layernorm=steps * int(spec.use_layernorm),
+                  quant_lstm_cell=steps)
     return counts
 
 
@@ -711,8 +765,10 @@ def stepwise_full_width(dev, model, repeats=3):
                 times[name].append(secs)
         # profiled over the first two layers (both input widths): the
         # profiler's bookkeeping of a whole pass costs a minute
+        kernels = {}
         busy_ms, prof_wall_s = device_busy_ms(lambda: timed_pass(
-            qlayers[:2], x, ops.quant_recurrent_seq_stepwise)[1])
+            qlayers[:2], x, ops.quant_recurrent_seq_stepwise)[1], kernels)
+        step_ops = between_kernels(kernels, 2 * T)
     tok_s = {name: sorted(B * T / t for t in v) for name, v in times.items()}
     for name, vals in tok_s.items():
         log(f"[stepwise] {cfg.name} {name} prompt tokens/s over "
@@ -723,10 +779,42 @@ def stepwise_full_width(dev, model, repeats=3):
         f"{busy_ms} ms of {prof_wall_s * 1e3:.1f} ms wall (busy share "
         f"{share})")
     return {"arch": cfg.name, "launches": counts,
+            "device_activities_layers_0_1": kernels,
+            "other_device_ops_layers_0_1": step_ops,
             "gemm_launches_by_shape": by_shape, "prompt_tok_s": tok_s,
             "first_pass_s": {"stepwise": step_s, "hoisted": hoisted_s},
             "profiled": {"device_busy_ms": busy_ms, "wall_s": prof_wall_s,
                          "busy_share": share}}
+
+
+STEP_KERNELS = ("gemm_kernel", "int_layernorm_kernel", "quant_lstm_cell")
+
+
+def between_kernels(kernels, steps):
+    """From the profiled device activities of ``steps`` stepwise LSTM steps
+    of LN layers: fail unless the port's kernels ran exactly 5 a step (3
+    GEMMs, the gate pass, the cell) and everything else on the device (a
+    layer's quantize, transpose, stack and dequantize) fewer times than
+    there are steps, so that no PyTorch op runs between a step's kernels.
+    Returns the other activities' total; None where the profiler recorded
+    nothing."""
+    if not kernels:
+        log("[stepwise] the profiler recorded no device activity: the ops "
+            "between the kernels are not counted")
+        return None
+    ours = sum(n for k, n in kernels.items()
+               if any(name in k for name in STEP_KERNELS))
+    other = {k: n for k, n in kernels.items()
+             if not any(name in k for name in STEP_KERNELS)}
+    log(f"[stepwise] profiled {steps} steps: {ours} launches of the port's "
+        f"kernels, {sum(other.values())} other device activities "
+        f"{sorted(other.items(), key=lambda kv: -kv[1])[:8]}")
+    if ours != 5 * steps or sum(other.values()) >= steps:
+        raise AssertionError(f"stepwise: {ours} kernel launches and "
+                             f"{sum(other.values())} other device activities "
+                             f"over {steps} steps; expected {5 * steps} and "
+                             f"fewer than {steps}")
+    return sum(other.values())
 
 
 def plain_forward(params, qlayers, tokens, states):
@@ -857,28 +945,43 @@ def serve_full_width(dev, arch, repeats):
     return out, (params, qlayers, cfg)
 
 
+def engine_workload(cfg):
+    """``ENGINE``'s requests for ``cfg``'s vocabulary."""
+    from repro_torch.launch import engine as E
+
+    return E.synthetic_trace(
+        ENGINE["n_requests"], cfg.vocab_size, seed=ENGINE["seed"],
+        prompt_lens=ENGINE["prompt_lens"], gen_lens=ENGINE["gen_lens"],
+        arrival_span=ENGINE["arrival_span"])
+
+
+def engine_run(model, requests, policy, oversubscribe, speculate):
+    """One continuous-batching engine run over ``requests``: ``(results,
+    stats)``."""
+    import torch
+    from repro_torch.launch import engine as E
+
+    params, qlayers, cfg = model
+    eng = E.ContinuousBatchingEngine(
+        params, qlayers, cfg, n_slots=ENGINE["slots"], chunk=ENGINE["chunk"],
+        speculate=speculate, policy=policy, oversubscribe=oversubscribe)
+    eng.submit_all(requests)
+    torch.cuda.synchronize()
+    return eng.run()
+
+
 def engine_full_width(model, policy, oversubscribe, speculate):
     """The continuous-batching engine over ``ENGINE``'s workload on a
     full-width model; every stream held against ``decode_single``."""
-    import torch
     from repro_torch.launch import engine as E
     from repro_torch.launch import serve
     from repro_torch.models import lstm_lm
 
     params, qlayers, cfg = model
-    requests = E.synthetic_trace(
-        ENGINE["n_requests"], cfg.vocab_size, seed=ENGINE["seed"],
-        prompt_lens=ENGINE["prompt_lens"], gen_lens=ENGINE["gen_lens"],
-        arrival_span=ENGINE["arrival_span"])
+    requests = engine_workload(cfg)
 
     def run():
-        eng = E.ContinuousBatchingEngine(
-            params, qlayers, cfg, n_slots=ENGINE["slots"],
-            chunk=ENGINE["chunk"], speculate=speculate, policy=policy,
-            oversubscribe=oversubscribe)
-        eng.submit_all(requests)
-        torch.cuda.synchronize()
-        return eng.run()
+        return engine_run(model, requests, policy, oversubscribe, speculate)
 
     serve.reset_launch_counts()
     results, stats = run()
@@ -946,19 +1049,23 @@ def engine_full_width(model, policy, oversubscribe, speculate):
                          "busy_share": share}}
 
 
-def device_busy_ms(run):
+def device_busy_ms(run, kernels=None):
     """``(device ms, wall s)`` of one run under ``torch.profiler``: the sum
     of the kernels' device time (launches do not overlap on one stream),
     beside the wall seconds ``run`` returns (its own host clock).  Device
-    ms is None where the profiler records no device time."""
+    ms is None where the profiler records no device time.  ``kernels``, a
+    dict, receives each device activity's count by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_s = run()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernels is not None:
+        kernels.update({e.key: e.count for e in events})
+    busy_us = sum(e.self_device_time_total for e in events)
     return (busy_us / 1e3 if busy_us > 0 else None), wall_s
 
 
@@ -1074,70 +1181,136 @@ def time_kernels(dev, lstm_layer, gru_layer):
     gemm = time_gemm(dev, flush)
     return (gemm, time_scan(dev, lstm_layer, "quant_lstm_scan", flush),
             time_scan(dev, gru_layer, "quant_gru_scan", flush),
-            time_cell_kernels(dev, lstm_layer[1], flush))
+            time_cell_kernels(dev, flush))
 
 
-def time_cell_kernels(dev, spec, flush):
-    """Device ms of the cell kernel (the ``lstm-rnnt`` form, and the
-    peephole + in-fusion LN form) and the LayerNorm kernel at the stepwise
-    path's B4 H2048, beside their plain versions and bounds (bytes: there
-    are no int8 products)."""
+def launch_floor_ms(dev, flush):
+    """``cold_ms`` of one launch that does no work to speak of (a
+    one-element PyTorch add): the timing method's floor."""
+    import torch
+
+    tiny = torch.zeros(1, device=dev)
+    return cold_ms(lambda: tiny.add_(1), 50, flush)[0]
+
+
+def step_bytes(spec, B, kind):
+    """Bytes the gate pass (``kind`` "gates") or the cell's step entry
+    ("cell") of one LSTM step must move: each input read once (the blocks
+    of the accumulators and of the gate pass's output that it reads, the
+    cell state where read, the per-gate vectors), each output written
+    once."""
+    from repro_torch.kernels import int_layernorm as KL
+
+    H, gates = spec.cfg_d_hidden, spec.variant.gates
+    given = KL.pass_gates(spec)
+    bh = B * H
+    if kind == "gates":
+        n = 2 * len(gates) * bh * 4 + len(gates) * bh * 2  # acc in, out
+        peep = [g for g in given if KL.gate_scale(spec, g)[-1]]
+        return n + len(given) * 6 * H + len(peep) * 2 * H + (
+            2 * bh if peep else 0)
+    n = 2 * bh + 3 * bh  # c in, c and m out
+    for g in gates:
+        if g in given:
+            n += 2 * bh
+        else:
+            n += 8 * bh + (2 * H if KL.gate_scale(spec, g)[-1] else 0)
+    if spec.use_peephole:
+        n += 2 * H + (6 * H if spec.use_layernorm else 0)
+    return n
+
+
+def time_cell_kernels(dev, flush):
+    """Device ms of kernels 2 and 3 at the stepwise pass's B4 H2048, each
+    beside its host enqueue, plain version, bound (bytes: there are no
+    int8 products) and the method's launch floor: the TPU-contract entries
+    (the cell in the lstm-rnnt form and the peephole + in-fusion LN form,
+    the LayerNorm of one gate's rows) and, where this revision has them,
+    the step entries: the gate pass of an lstm-rnnt step (B4 G4 n2048,
+    ``launch`` rows) and the cell's step entry in the lstm-rnnt form and
+    the peephole + LN form.  Returns ``(cell rows, LayerNorm rows)``; the
+    first row of each is the main path's."""
     import torch
     from repro_torch.core import fixedpoint as fp
     from repro_torch.kernels import int_layernorm as KL
     from repro_torch.kernels import quant_lstm_cell as KC
+    from repro_torch.models import lstm as L
 
-    H = spec.cfg_d_hidden
+    H = 2048
+    floor = launch_floor_ms(dev, flush)
+    log(f"[time] launch floor of cold_ms (a one-element add): {floor:.4f} ms")
     gen = torch.Generator(device=dev).manual_seed(6)
 
     def ints(shape, lo, hi, dtype=torch.int16):
         return torch.randint(lo, hi, shape, generator=gen, device=dev,
                              dtype=dtype)
 
+    def row(fields, fn, plain, bytes_moved):
+        r = dict(fields, launch_floor_ms=floor, library_ms=None)
+        r["ms"], r["host_ms"] = cold_ms(fn, 50, flush)
+        r["plain_ms"] = cold_ms(plain, 5, flush)[0]
+        r["bound_ms"], r["bound_by"] = bound(bytes_moved, 0)
+        log(f"[time] {fields}: {r['ms']:.4f} ms (host enqueue "
+            f"{r['host_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}), "
+            f"floor {floor:.4f} ms")
+        return r
+
+    step = hasattr(KL, "int_layernorm_gates")
+    cell_rows, ln_rows = [], []
+    if step:
+        from repro_torch.testing import kernel_cases as KCASES
+
+        layers = {
+            "lstm-rnnt form": KCASES.step_layer(L.LSTMVariant(
+                use_layernorm=True, use_projection=True), B, H, dev, 61)[2],
+            "peephole + in-fusion LN": KCASES.step_layer(L.LSTMVariant(
+                use_layernorm=True, use_projection=True, use_peephole=True),
+                B, H, dev, 62)[2]}
+        kw = layers["lstm-rnnt form"]
+        gkw = {k: kw[k] for k in ("arrays", "spec", "acc_x", "acc_h", "c_q")}
+        ln_rows.append(row(
+            {"entry": "int_layernorm_gates", "B": B, "G": 4, "n": H},
+            lambda: KL.int_layernorm_gates(**gkw),
+            lambda: KL.int_layernorm_gates_plain(**gkw),
+            step_bytes(kw["spec"], B, "gates")))
+        for form, kw in layers.items():
+            cell_rows.append(row(
+                {"entry": "quant_lstm_cell_step", "B": B, "H": H,
+                 "form": form},
+                lambda kw=kw: KC.quant_lstm_cell_step(**kw),
+                lambda kw=kw: KC.quant_lstm_cell_step_plain(**kw),
+                step_bytes(kw["spec"], B, "cell")))
+    # the TPU-contract entries (the only ones of an earlier revision)
     i16, f16, z16, o16, c = (ints((B, H), -32768, 32768) for _ in range(5))
     o32 = ints((B, H), -(2**20), 2**20, torch.int32)
     p_o, lw = ints((H,), -32767, 32768), ints((H,), 100, 32767)
     lb = ints((H,), -100000, 100000, torch.int32)
-    base = dict(cell_int_bits=spec.cell_int_bits, cifg=False,
-                eff_m=spec.eff_m, zp_m=spec.zp_m)
+    ln_out = fp.quantize_multiplier(2**-10 * 3e-5 / 2**-12)
+    base = dict(cell_int_bits=2, cifg=False,
+                eff_m=fp.quantize_multiplier(2.0**-30 / 0.005), zp_m=-4)
     forms = (("lstm-rnnt form", dict(o_in=o16, **base), 5 * 2),
              ("peephole + in-fusion LN", dict(
                  o_in=o32, p_o=p_o, eff_c_o=fp.quantize_multiplier(0.37),
-                 lw_o=lw, lb_o=lb, ln_out_o=spec.gate_spec("o").ln_out,
-                 **base), 4 * 2 + 4))
-    cell_rows = []
+                 lw_o=lw, lb_o=lb, ln_out_o=ln_out, **base), 4 * 2 + 4))
     for name, kw, in_bytes in forms:
-        row = {"B": B, "H": H, "form": name}
-        row["ms"], row["host_ms"] = cold_ms(
-            lambda: KC.quant_lstm_cell(i16, f16, z16, c_q=c, **kw), 50, flush)
-        row["plain_ms"], _ = cold_ms(
-            lambda: KC.quant_lstm_cell_plain(i16, f16, z16, c_q=c, **kw), 10,
-            flush)
-        row["library_ms"] = None
         vec_bytes = 8 * H if "p_o" in kw else 0  # p_o, L (int16), b (int32)
-        row["bound_ms"], row["bound_by"] = bound(
-            B * H * (in_bytes + 3) + vec_bytes, 0)
-        cell_rows.append(row)
-        log(f"[time] quant_lstm_cell B={B} H={H} {name}: {row['ms']:.4f} ms "
-            f"(host enqueue {row['host_ms']:.4f} ms), plain "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
-            f"({row['bound_by']})")
+        cell_rows.append(row(
+            {"entry": "quant_lstm_cell", "B": B, "H": H, "form": name},
+            lambda kw=kw: KC.quant_lstm_cell(i16, f16, z16, c_q=c, **kw),
+            lambda kw=kw: KC.quant_lstm_cell_plain(i16, f16, z16, c_q=c,
+                                                   **kw),
+            B * H * (in_bytes + 3) + vec_bytes))
     q = ints((B, H), -32768, 32768)
-    out = spec.gate_spec("f").ln_out
-    row = {"B": B, "n": H}
-    row["ms"], row["host_ms"] = cold_ms(
-        lambda: KL.int_layernorm(q, lw, lb, out_m0=out[0], out_shift=out[1]),
-        50, flush)
-    row["plain_ms"], _ = cold_ms(
-        lambda: KL.int_layernorm_plain(q, lw, lb, out_m0=out[0],
-                                       out_shift=out[1]), 10, flush)
-    row["library_ms"] = None
-    row["bound_ms"], row["bound_by"] = bound(B * H * 4 + H * 6, 0)
-    log(f"[time] int_layernorm B={B} n={H}: {row['ms']:.4f} ms (host enqueue "
-        f"{row['host_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, bound "
-        f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    ln_rows.append(row(
+        {"entry": "int_layernorm", "B": B, "n": H},
+        lambda: KL.int_layernorm(q, lw, lb, out_m0=ln_out[0],
+                                 out_shift=ln_out[1]),
+        lambda: KL.int_layernorm_plain(q, lw, lb, out_m0=ln_out[0],
+                                       out_shift=ln_out[1]),
+        B * H * 4 + H * 6))
     torch.cuda.synchronize()
-    return cell_rows, [row]
+    return cell_rows, ln_rows
 
 
 def check_flash(dev):
@@ -1457,36 +1630,107 @@ def time_barrier(dev, n_barriers=2000, repeats=5):
     return {"ctas": BARRIER_CTAS, "us": us, "repeats_us": per}
 
 
-def gemm_times(src, tag):
-    """``--gemm-times SRC TAG``: kernel 1 alone, built from the port under
-    ``SRC`` (this checkout's ``src``, or an earlier revision's unpacked
-    beside it), timed by ``time_gemm``; so two revisions' kernels are set
-    side by side in one call on one card.  Writes
-    ``chiprun_out/gemm_times_<TAG>.json``."""
+TIMES = {"--gemm-times": ("gemm", ("int8_matmul",)),
+         "--cell-times": ("cell", ("int_layernorm", "quant_lstm_cell")),
+         "--serve-times": ("serve", ("int8_matmul", "quant_lstm_scan",
+                                     "quant_gru_scan", "int_layernorm",
+                                     "quant_lstm_cell"))}
+
+
+def serve_rates(dev):
+    """The host-clock rates of the served paths, without their checks (the
+    full run holds every output): full-width lstm-rnnt and gru-rnnt served
+    statically ``REPEATS`` times each, the stepwise pass of lstm-rnnt 3
+    times, and each of ``ENGINE_RUNS`` ``ENGINE_REPEATS`` times, each path
+    after one run that is not counted; with the tokens each path served,
+    so two revisions' outputs are compared too."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.layers import embedding as emb
+
+    out, models = {}, {}
+    for arch in ("lstm-rnnt", "gru-rnnt"):
+        cfg = get_config(arch)
+        params, qlayers = serve.build_model(cfg, B, T, dev)
+        models[arch] = (params, qlayers, cfg)
+        prompt = serve.random_prompt(cfg, B, T, dev)
+        reps = [serve.serve(params, qlayers, cfg, prompt, GEN)
+                for _ in range(REPEATS + 1)][1:]
+        out[f"serve {arch}"] = {
+            "prompt_tok_s": sorted(B * T / r.prefill_s for r in reps),
+            "decode_tok_s": sorted(B * GEN / r.decode_s for r in reps),
+            "tokens": reps[0].tokens.tolist()}
+    params, qlayers, cfg = models["lstm-rnnt"]
+    with torch.no_grad():
+        x = emb.embed_tokens(params, serve.random_prompt(
+            cfg, B, T, dev, seed=4)).float()
+        passes = [timed_pass(qlayers, x, ops.quant_recurrent_seq_stepwise)
+                  for _ in range(4)][1:]
+    out["stepwise lstm-rnnt"] = {
+        "prompt_tok_s": sorted(B * T / secs for _, secs in passes),
+        "ys_sum": int(passes[0][0][-1][1].long().sum())}
+    for arch, policy, ratio, speculate in ENGINE_RUNS:
+        requests = engine_workload(models[arch][2])
+        runs = [engine_run(models[arch], requests, policy, ratio, speculate)
+                for _ in range(ENGINE_REPEATS + 1)][1:]
+        stats = [st for _, st in runs]
+        out[f"engine {arch} {policy}"] = {
+            "tokens_per_s": sorted(st.tokens_per_s for st in stats),
+            "step_ms": sorted(st.wall_s / st.steps * 1e3 for st in stats),
+            "tokens": [runs[0][0][r.rid].tokens for r in requests]}
+    for path, rates in out.items():
+        for name, vals in rates.items():
+            if name.endswith(("_s", "_ms")):
+                log(f"[serve-times] {path} {name} over {len(vals)} runs: min "
+                    f"{vals[0]:.1f} median {vals[len(vals) // 2]:.1f} max "
+                    f"{vals[-1]:.1f} (host clock)")
+    return out
+
+
+def kernel_times(flag, src, tag):
+    """``--gemm-times SRC TAG`` (kernel 1 at ``_gemm_timed()``, by
+    ``time_gemm``), ``--cell-times SRC TAG`` (kernels 2 and 3 at the
+    stepwise pass's shapes, by ``time_cell_kernels``) or ``--serve-times
+    SRC TAG`` (the served paths' host-clock rates, by ``serve_rates``):
+    the port under ``SRC`` (this checkout's ``src``, or an earlier
+    revision's unpacked beside it), so that two revisions are set side by
+    side in one call on one card.  Writes
+    ``chiprun_out/<gemm|cell|serve>_times_<TAG>.json``."""
+    kind, names = TIMES[flag]
     sys.path.insert(0, os.path.abspath(src))
     import torch
     import repro_torch
     from repro_torch.kernels import build
 
-    log(f"[gemm-times] {tag}: repro_torch from "
+    log(f"[{kind}-times] {tag}: repro_torch from "
         f"{os.path.dirname(repro_torch.__file__)} on "
         f"{torch.cuda.get_device_name(0)}")
-    log(f"[build] {build.build_all(['int8_matmul'])}")
-    for line in build.build_log("int8_matmul").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    log(f"[build] {build.build_all(list(names))}")
+    for name in names:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
     dev = torch.device("cuda", 0)
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
-    rows = time_gemm(dev, flush)
+    if kind == "gemm":
+        out = {"rows": time_gemm(dev, flush)}
+    elif kind == "cell":
+        cell, ln = time_cell_kernels(dev, flush)
+        out = {"quant_lstm_cell": cell, "int_layernorm": ln}
+    else:
+        del flush
+        out = serve_rates(dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", f"gemm_times_{tag}.json"),
+    with open(os.path.join(ROOT, "chiprun_out", f"{kind}_times_{tag}.json"),
               "w") as f:
-        json.dump({"gpu": smi, "src": os.path.abspath(src), "rows": rows},
-                  f, indent=1)
+        json.dump({"gpu": smi, "src": os.path.abspath(src), **out}, f,
+                  indent=1)
     log(smi)
     return 0
 
@@ -1498,11 +1742,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing is run on the CPU",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--gemm-times"]:
+    if sys.argv[1:2] and sys.argv[1] in TIMES:
         if len(sys.argv) != 4:
-            print("usage: chip_smoke.py --gemm-times SRC TAG", file=sys.stderr)
+            print(f"usage: chip_smoke.py {sys.argv[1]} SRC TAG",
+                  file=sys.stderr)
             return 2
-        return gemm_times(*sys.argv[2:4])
+        return kernel_times(*sys.argv[1:4])
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as KF
     from repro_torch.kernels import int8_matmul as K1
@@ -1577,6 +1822,10 @@ def main() -> int:
                              f" do not add up to {launches['int8_matmul']}")
     log(f"[launches] int8_matmul by shape over the engines and the "
         f"stepwise pass: {gemm_by_shape}")
+    for name, r in (("int_layernorm", ln[0]), ("quant_lstm_cell", cell[0])):
+        r["launches_x_gap_ms"] = launches[name] * (r["ms"] - r["bound_ms"])
+        log(f"[launches] {name}: {launches[name]} x ({r['ms']:.4f} - "
+            f"{r['bound_ms']:.6f}) ms = {r['launches_x_gap_ms']:.2f} ms")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1593,11 +1842,11 @@ def main() -> int:
                      gru_scan[0], "B=4 T=32 H=2048 LN (prefill layer)",
                      gru_scan),
         kernel_entry("int_layernorm", KL, launches["int_layernorm"], err_ln,
-                     ln[0], "B=4 n=2048 (one gate of a stepwise lstm-rnnt "
-                     "step)", ln),
+                     ln[0], "the gate pass of a stepwise lstm-rnnt step, "
+                     "B=4 G=4 n=2048", ln),
         kernel_entry("quant_lstm_cell", KC, launches["quant_lstm_cell"],
-                     err_cell, cell[0], "B=4 H=2048, the lstm-rnnt form (a "
-                     "stepwise step)", cell),
+                     err_cell, cell[0], "the step entry of a stepwise "
+                     "lstm-rnnt step, B=4 H=2048", cell),
         kernel_entry("flash_attention", KF, launches["flash_attention"],
                      err_flash, flash[0], "B=2 H=32 KVH=8 S=4096 D=128 "
                      "causal bf16, tensor-core form (a qwen3-4b prefill "

@@ -1,8 +1,11 @@
 // The integer LSTM cell as device functions, shared by the standalone cell
-// kernel (quant_lstm_cell.cu) and the cooperative LSTM sequence kernel
-// (quant_lstm_scan.cu), so the two cannot drift.  Port of the body of the
-// TPU kernel `_cell_kernel` and of `finish_o_gate`
-// (repro/kernels/quant_lstm_cell.py).  Per hidden unit:
+// kernel (quant_lstm_cell.cu), the gate pass (int_layernorm.cu) and the
+// cooperative LSTM sequence kernel (quant_lstm_scan.cu), so they cannot
+// drift.  Port of the body of the TPU kernel `_cell_kernel` and of
+// `finish_o_gate` (repro/kernels/quant_lstm_cell.py), and of the gate
+// prologue of `ref.lstm_gate_preacts`.  Per hidden unit:
+//   gate  = mbqm(acc_x, eff_x) sat+ mbqm(acc_h, eff_h)
+//           [sat+ mbqm(P (.) c_old, eff_c)]   (i/f peephole; sat16 after)
 //   c_new = sat16(rdbpot(i*z, 30 - n_c) sat+ rdbpot(f*c, 15)),
 //           i = sigmoid(i16), or min(32768 - f, 32767) under CIFG
 //   o16   = sat16(o_in sat+ mbqm(P_o * c_new, eff_c_o))   (peephole only;
@@ -17,6 +20,24 @@
 #include "fixedpoint.cuh"
 
 namespace cell {
+
+// One gate's rescale constants: the packed accumulators' eff_x and eff_h
+// and, for an i/f peephole on the previous cell state, eff_c (has_c).  The
+// peephole o gate has has_c = 0 here: the cell finishes it on c_new.
+struct GateScale {
+  int32_t x_m0, x_sh, h_m0, h_sh, c_m0, c_sh, has_c;
+};
+
+// The gate prologue (ref.lstm_gate_acc): the int32 pre-activation of one
+// element from its input and recurrent accumulators, the peephole weight p
+// and the previous cell state c (both read only where has_c).
+FP_HD int32_t gate_preact(const GateScale& s, int32_t acc_x, int32_t acc_h,
+                          int32_t p, int32_t c) {
+  int32_t g = fp::sat_add(fp::mbqm(acc_x, s.x_m0, s.x_sh),
+                          fp::mbqm(acc_h, s.h_m0, s.h_sh));
+  if (s.has_c) g = fp::sat_add(g, fp::mbqm(p * c, s.c_m0, s.c_sh));
+  return g;
+}
 
 // the input gate of a CIFG cell from its forget gate's activation
 FP_HD int32_t cifg_input(int32_t f_act) {

@@ -9,8 +9,10 @@
 //                  [sat+ mbqm(P_g * c, eff_c)])  -> integer LayerNorm
 //   c = sat16(rdbpot(i*z, 30 - n_c) sat+ rdbpot(f*c, 15)); o finished on c
 //   m = sat8(mbqm(o * tanh(c), eff_m) + zp_m); h = projection(m) or m
-// The cell (c, the peephole o gate, m) is the device code of lstm_cell.cuh,
-// which the standalone cell kernel (quant_lstm_cell.cu) runs too.
+// The gate prologue (cell::gate_preact) and the cell (c, the peephole o
+// gate, m) are the device code of lstm_cell.cuh, which the gate pass
+// (int_layernorm.cu) and the standalone cell kernel (quant_lstm_cell.cu)
+// run too.
 //   ys[b, t] = h
 // All 16 LSTM variants run through runtime flags (use_layernorm,
 // use_projection, use_peephole, use_cifg; G = 3 or 4 gate blocks).  With
@@ -209,17 +211,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (j >= un) continue;
         const int col = k * H + unit0 + j;
         const int32_t acc_h = fp::wrap32((int64_t)gates[idx] + p.fold_hb[col]);
-        int32_t g = fp::sat_add(fp::mbqm(axs[idx], p.eff_x[k][0], p.eff_x[k][1]),
-                                fp::mbqm(acc_h, p.eff_h[k][0], p.eff_h[k][1]));
-        if (k == slot_o_late) {  // int32 pre-peephole o accumulator
-          gates[idx] = g;
-          continue;
-        }
-        if (p.use_ph && k != p.slot_z) {
-          g = fp::sat_add(g, fp::mbqm((int32_t)p.P[k][unit0 + j] * cs[r * u + j],
-                                      p.eff_c[k][0], p.eff_c[k][1]));
-        }
-        gates[idx] = fp::sat16(g);
+        // an i/f peephole reads the old c; the late o is finished on c_new
+        const bool has_c = p.use_ph && k != p.slot_z && k != slot_o_late;
+        const cell::GateScale sc = {p.eff_x[k][0], p.eff_x[k][1], p.eff_h[k][0],
+                                    p.eff_h[k][1], p.eff_c[k][0], p.eff_c[k][1], has_c};
+        const int32_t g = cell::gate_preact(sc, axs[idx], acc_h,
+                                            has_c ? p.P[k][unit0 + j] : 0,
+                                            has_c ? cs[r * u + j] : 0);
+        // the late o keeps its int32 pre-peephole accumulator
+        gates[idx] = k == slot_o_late ? g : fp::sat16(g);
       }
       __syncthreads();
 

@@ -28,6 +28,7 @@ KERNELS = ("int8_matmul", "quant_lstm_scan", "quant_gru_scan", "int_layernorm",
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[tuple, object] = {}
 
 
 def _nvcc() -> str:
@@ -96,6 +97,35 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         _LIBS[name] = ctypes.CDLL(str(_target(name)))
     return _LIBS[name]
+
+
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """``symbol`` of library ``name`` with its ctypes signature, set once
+    (the wrappers call this per launch; the lookup is a dict hit)."""
+    fn = _FNS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _FNS[(name, symbol)] = fn
+    return fn
+
+
+def launch(name: str, tensors, ints, n_sm: int, device) -> None:
+    """``<name>_launch(ptrs, ints, n_sm, stream)`` of library ``name``:
+    the tensors' pointers (None for null) and the int32 scalar block as
+    arrays, on ``device``'s current stream; raises on a launch error."""
+    import torch  # nothing here runs at import time
+
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+    vals = (ctypes.c_int32 * len(ints))(*ints)
+    fn = function(name, f"{name}_launch", [ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(ctypes.addressof(ptrs), ctypes.addressof(vals), n_sm, stream)
+    check(err, name)
 
 
 def check(err: int, what: str) -> None:

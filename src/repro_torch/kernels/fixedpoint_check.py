@@ -75,10 +75,9 @@ def on_card(c: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
         "rsqrt_m0": torch.empty(nv, dtype=torch.int32, device=device),
         "rsqrt_shift": torch.empty(nv, dtype=torch.int32, device=device),
         "mbqm": torch.empty(nm, dtype=torch.int32, device=device)}
-    fn = build.load("fixedpoint_check").fixedpoint_check_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, p, i, i, p, p, p, p, p, i, p, p]
-    fn.restype = ctypes.c_int
+    fn = build.function("fixedpoint_check", "fixedpoint_check_launch",
+                        [p, i, p, p, p, i, i, p, p, p, p, p, i, p, p])
     with torch.cuda.device(device):
         err = fn(t["bits"].data_ptr(), nb, out["tanh"].data_ptr(),
                  out["sigmoid"].data_ptr(), t["v"].data_ptr(), nv,

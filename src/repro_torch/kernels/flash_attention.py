@@ -171,10 +171,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
-    fn = build.load("flash_attention").flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9
-                   + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = build.function("flash_attention", "flash_attention_launch",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9
+                        + [ctypes.c_int] * 10
+                        + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -62,9 +62,8 @@ PLAN_ERRORS = {1: "shapes the kernel does not take",
 def gemm_plan(M: int, N: int, K: int, n_sm: int) -> GemmPlan:
     """The plan the kernel library exports for (M, N, K) on ``n_sm`` SMs;
     raises ``ValueError`` where it refuses the shape."""
-    fn = build.load("int8_matmul").int8_matmul_plan
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("int8_matmul", "int8_matmul_plan",
+                        [ctypes.c_int] * 4 + [ctypes.c_void_p])
     out = (ctypes.c_longlong * 10)()
     err = fn(M, N, K, n_sm, ctypes.addressof(out))
     if err:
@@ -120,10 +119,9 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, fold: torch.Tensor,
     n_sm = sm_count(dev.index if dev.index is not None
                     else torch.cuda.current_device())
     gemm_plan(M, N, K, n_sm)  # raises where the kernel cannot take the shape
-    lib = build.load("int8_matmul")
-    fn = lib.int8_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("int8_matmul", "int8_matmul_launch",
+                        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                        + [ctypes.c_void_p])
 
     def ptr(t):
         return None if t is None or out_dtype == torch.int32 else t.data_ptr()

@@ -13,25 +13,27 @@ two stages:
 
 The stepwise executor (``quant_recurrent_seq_stepwise``, the pre-hoist
 baseline) loops ``quant_recurrent_step`` over time.  An LSTM step runs the
-input and recurrent GEMMs, the gate rescales, each gate's LayerNorm
-(``int_layernorm``), the fused cell (``quant_lstm_cell``) and the
-projection (the GEMM's requantize epilogue); a GRU step runs the input
-GEMM and the GRU sequence kernel over one timestep.  Every path is
-bit-identical to the others.
+input and recurrent GEMMs, for an LN layer the gate pass that forms and
+normalises its gates (``int_layernorm_gates``, one launch), the cell,
+which forms any other gate itself (``quant_lstm_cell_step``), and the
+projection (the GEMM's requantize epilogue): no PyTorch op between the
+kernels.  A GRU step runs the input GEMM and the GRU sequence kernel over
+one timestep.  Every path is bit-identical to the others.
 
 There is no backend switch: CUDA tensors launch the kernels (or raise),
 CPU tensors take the kernels' plain versions.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
 
-from . import ref
 from .int8_matmul import int8_matmul
-from .int_layernorm import int_layernorm
-from .quant_lstm_cell import quant_lstm_cell
+from .int_layernorm import int_layernorm, int_layernorm_gates  # noqa: F401
+from .quant_lstm_cell import (  # noqa: F401
+    quant_lstm_cell, quant_lstm_cell_step)
 from .quant_lstm_scan import quant_recurrent_seq_scan
 
 
@@ -54,6 +56,15 @@ def quant_recurrent_input_proj(arrays: Dict[str, Any],
 quant_lstm_input_proj = quant_recurrent_input_proj
 
 
+@functools.lru_cache(maxsize=None)
+def _proj_multipliers(spec, device: torch.device
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The projection's per-channel ``(m0, shift)``, all ``eff_proj``, built
+    once per layer spec and device."""
+    return tuple(torch.full((spec.d_out,), v, dtype=torch.int32,
+                            device=device) for v in spec.eff_proj)
+
+
 def _lstm_project(arrays: Dict[str, Any], spec, m_q: torch.Tensor
                   ) -> torch.Tensor:
     """``ref.lstm_project`` through the GEMM's requantize epilogue:
@@ -61,11 +72,7 @@ def _lstm_project(arrays: Dict[str, Any], spec, m_q: torch.Tensor
     integers (the epilogue's plain version is that very sequence)."""
     if not spec.use_projection:
         return m_q
-    d_out = spec.d_out
-    m0 = torch.full((d_out,), spec.eff_proj[0], dtype=torch.int32,
-                    device=m_q.device)
-    shift = torch.full((d_out,), spec.eff_proj[1], dtype=torch.int32,
-                       device=m_q.device)
+    m0, shift = _proj_multipliers(spec, m_q.device)
     return int8_matmul(m_q, arrays["W_proj"], arrays["fold_proj"], m0, shift,
                        out_dtype=torch.int8, zp_out=spec.zp_h_out)
 
@@ -75,15 +82,14 @@ def quant_lstm_recurrent_step(arrays: Dict[str, Any], spec,
                               c_q: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Recurrent stage of one LSTM timestep from the input accumulator
-    slice: the recurrent GEMM, the gate rescales (PyTorch ops), each gate's
-    LayerNorm kernel, the fused cell kernel and the projection.  Returns
-    ``(h_new int8, c_new int16)``."""
+    slice: the recurrent GEMM, the gate pass (LN layers), the cell and the
+    projection, each one launch on CUDA tensors.  Returns ``(h_new int8,
+    c_new int16)``."""
     acc_h = int8_matmul(h_q, arrays["R_cat"], arrays["fold_hb_cat"])
-    i16, f16, z16, o_in, o_kw = ref.lstm_gate_preacts(
-        arrays, spec, acc_x_t, acc_h, c_q, layernorm=int_layernorm)
-    m_q, c_new = quant_lstm_cell(
-        i16, f16, z16, o_in, c_q, cell_int_bits=spec.cell_int_bits,
-        cifg=spec.use_cifg, eff_m=spec.eff_m, zp_m=spec.zp_m, **o_kw)
+    gates16 = (int_layernorm_gates(arrays, spec, acc_x_t, acc_h, c_q)
+               if spec.use_layernorm else None)
+    m_q, c_new = quant_lstm_cell_step(arrays, spec, acc_x_t, acc_h, c_q,
+                                      gates16)
     return _lstm_project(arrays, spec, m_q), c_new
 
 
@@ -134,9 +140,10 @@ def quant_recurrent_seq_stepwise(arrays: Dict[str, Any], spec,
     state = tuple(state0)
     if xs_q.shape[1] == 0:
         return _empty_seq(xs_q, state)
+    steps = xs_q.transpose(0, 1).contiguous()  # step t's rows contiguous
     ys = []
-    for t in range(xs_q.shape[1]):
-        state = quant_recurrent_step(arrays, spec, xs_q[:, t], state)
+    for x_t in steps:
+        state = quant_recurrent_step(arrays, spec, x_t, state)
         ys.append(state[0])
     return torch.stack(ys, dim=1), state
 

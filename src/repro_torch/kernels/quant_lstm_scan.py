@@ -129,10 +129,9 @@ def quant_recurrent_seq_scan(
         *[None if t is None else t.data_ptr() for t in tensors])
     vals = (T,) + _spec_ints(spec)
     ints = (ctypes.c_int32 * len(vals))(*vals)
-    fn = build.load("quant_lstm_scan").quant_lstm_scan_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("quant_lstm_scan", "quant_lstm_scan_launch",
+                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ctypes.addressof(ptrs), ctypes.addressof(ints), B, n_sm,

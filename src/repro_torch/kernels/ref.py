@@ -62,48 +62,64 @@ def quant_lstm_cell(i16, f16, z16, o_in, c_q, *, cell_int_bits: int,
     return m_q, c_new
 
 
-def lstm_gate_preacts(vals, spec, acc_x, acc_h, c_q, layernorm=None):
+def lstm_gate_acc(vals, spec, k, g, acc_x, acc_h, c_q):
+    """Gate ``g``'s int32 pre-activation from its block ``k`` of the packed
+    accumulators: ``mbqm(acc_x, eff_x) sat+ mbqm(acc_h, eff_h) [sat+
+    mbqm(P_g (.) c_q, eff_c)]``, the peephole term for i/f only (the cell
+    finishes a peephole o gate on the new cell state).  The gate prologue
+    that the gate pass and the cell kernel run (``cell::gate_preact``)."""
+    H = spec.cfg_d_hidden
+    gs = spec.gate_spec(g)
+    gate = fp.saturating_add_i32(
+        fp.multiply_by_quantized_multiplier(
+            acc_x[..., k * H:(k + 1) * H], *gs.eff_x),
+        fp.multiply_by_quantized_multiplier(
+            acc_h[..., k * H:(k + 1) * H], *gs.eff_h))
+    if gs.eff_c is not None and g != "o":
+        acc_c = iops.matmul_i16_elementwise(vals["P"][g], c_q)
+        gate = fp.saturating_add_i32(
+            gate, fp.multiply_by_quantized_multiplier(acc_c, *gs.eff_c))
+    return gate
+
+
+def o_finisher_kw(vals, spec):
+    """The cell's o-gate finisher parameters of a peephole layer (``p_o``,
+    ``eff_c_o`` and, with LN, the in-fusion LN's), else ``{}``."""
+    if not spec.use_peephole:
+        return {}
+    gs = spec.gate_spec("o")
+    o_kw = dict(p_o=vals["P"]["o"], eff_c_o=gs.eff_c)
+    if spec.use_layernorm:
+        o_kw.update(lw_o=vals["L"]["o"], lb_o=vals["Lb"]["o"],
+                    ln_out_o=gs.ln_out)
+    return o_kw
+
+
+def lstm_gate_preacts(vals, spec, acc_x, acc_h, c_q):
     """Per-step gate pre-activations from the packed int32 accumulators.
 
     Rescales run in the reference order (mbqm(x) sat+ mbqm(h) [sat+
-    mbqm(P (.) c)] -> sat16 -> LN).  ``layernorm(q, w, b, out_m0=,
-    out_shift=)`` applies each gate's LN (``integer_layernorm`` when None;
-    the stepwise executor passes the LayerNorm kernel's wrapper).  Returns
+    mbqm(P (.) c)] -> sat16 -> LN, ``lstm_gate_acc``).  Returns
     ``(i16, f16, z16, o_in, o_kw)``; with a peephole ``o_in`` is the int32
     pre-peephole o accumulator and ``o_kw`` the finisher's params.
     """
-    layernorm = layernorm or iops.integer_layernorm
-    H = spec.cfg_d_hidden
     g16 = {}
-    o_kw = {}
     o_in = None
     for k, g in enumerate(spec.variant.gates):
-        gs = spec.gate_spec(g)
-        gate = fp.saturating_add_i32(
-            fp.multiply_by_quantized_multiplier(
-                acc_x[..., k * H:(k + 1) * H], *gs.eff_x),
-            fp.multiply_by_quantized_multiplier(
-                acc_h[..., k * H:(k + 1) * H], *gs.eff_h))
+        gate = lstm_gate_acc(vals, spec, k, g, acc_x, acc_h, c_q)
         if g == "o" and spec.use_peephole:
             o_in = gate
-            o_kw = dict(p_o=vals["P"]["o"], eff_c_o=gs.eff_c)
-            if spec.use_layernorm:
-                o_kw.update(lw_o=vals["L"]["o"], lb_o=vals["Lb"]["o"],
-                            ln_out_o=gs.ln_out)
             continue
-        if gs.eff_c is not None:  # i/f peephole on the previous cell state
-            acc_c = iops.matmul_i16_elementwise(vals["P"][g], c_q)
-            gate = fp.saturating_add_i32(
-                gate, fp.multiply_by_quantized_multiplier(acc_c, *gs.eff_c))
         gate16 = fp.saturate_i16(gate)
         if spec.use_layernorm:
-            gate16 = layernorm(gate16, vals["L"][g], vals["Lb"][g],
-                               out_m0=gs.ln_out[0], out_shift=gs.ln_out[1])
+            gs = spec.gate_spec(g)
+            gate16 = iops.integer_layernorm(gate16, vals["L"][g],
+                                            vals["Lb"][g], *gs.ln_out)
         g16[g] = gate16
     if o_in is None:
         o_in = g16["o"]
     i16 = g16.get("i", g16["f"])  # placeholder when CIFG (cell ignores it)
-    return i16, g16["f"], g16["z"], o_in, o_kw
+    return i16, g16["f"], g16["z"], o_in, o_finisher_kw(vals, spec)
 
 
 def lstm_project(vals, spec, m_q: torch.Tensor) -> torch.Tensor:

@@ -36,9 +36,8 @@ def scan_plan(kernel: str, *shape: int) -> ScanPlan:
     """The plan that library ``kernel`` exports as ``<kernel>_plan`` for
     ``shape`` (its arguments before the output block); raises
     ``ValueError`` where the plan refuses it."""
-    fn = getattr(build.load(kernel), f"{kernel}_plan")
-    fn.argtypes = [ctypes.c_int] * len(shape) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function(kernel, f"{kernel}_plan",
+                        [ctypes.c_int] * len(shape) + [ctypes.c_void_p])
     out = (ctypes.c_longlong * 5)()
     err = fn(*shape, ctypes.addressof(out))
     if err:

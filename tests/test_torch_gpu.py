@@ -5,6 +5,8 @@ with an H100:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -212,8 +214,20 @@ def test_engine_smoke_gru_launches_and_matches_decode_single(cuda):
             params, qlayers, cfg, r.prompt, r.max_new_tokens)
 
 
-@pytest.mark.parametrize("B,H", [(8, 256), (16, 1024), (4, 2048)])
+@functools.lru_cache(maxsize=None)
+def _step_cases():
+    from repro_torch.testing import kernel_cases
+
+    return kernel_cases.step_cases(torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("B,H", [(8, 256), (16, 1024), (4, 2048), (4, 1001),
+                                 (2, 16384), (2, 600), (2, 1100), (2, 1300),
+                                 (2, 1600), (2, 1900), (132, 16384)])
 def test_cell_kernel_matches_plain(cuda, B, H):
+    """The TPU-contract entry at (B, H), then the step entry on every
+    ``kernel_cases.step_cases`` case of that shape: one launch a call, the
+    plain version's bits, twice back to back."""
     from repro_torch.kernels import quant_lstm_cell as K3
     from repro_torch.testing import kernel_cases
 
@@ -225,9 +239,22 @@ def test_cell_kernel_matches_plain(cuda, B, H):
         want = K3.quant_lstm_cell_plain(**kw)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
             label
+    steps = [kw for _, kw in _step_cases()[1] if kw["c_q"].shape == (B, H)]
+    assert steps
+    for kw in steps:
+        want = K3.quant_lstm_cell_step_plain(**kw)
+        for _ in range(2):
+            before = K3.launches
+            got = K3.quant_lstm_cell_step(**kw)
+            assert K3.launches == before + 1
+            assert torch.equal(got[0], want[0]) and torch.equal(
+                got[1], want[1])
 
 
 def test_layernorm_kernel_matches_plain(cuda):
+    """The TPU-contract entry at row lengths 1..16384, then the gate pass on
+    every ``kernel_cases.step_cases`` case (each shape and LN layer, the
+    row split over 1..8 CTAs), twice back to back."""
     from repro_torch.kernels import int_layernorm as K2
     from repro_torch.testing import kernel_cases
 
@@ -238,6 +265,13 @@ def test_layernorm_kernel_matches_plain(cuda):
         got = K2.int_layernorm(**kw)
         assert K2.launches == before + 1
         assert torch.equal(got, K2.int_layernorm_plain(**kw)), label
+    for label, kw in _step_cases()[0]:
+        want = K2.int_layernorm_gates_plain(**kw)
+        for _ in range(2):
+            before = K2.launches
+            got = K2.int_layernorm_gates(**kw)
+            assert K2.launches == before + 1
+            assert torch.equal(got, want), label
 
 
 def _refuse_plain_versions(monkeypatch):
@@ -254,7 +288,10 @@ def _refuse_plain_versions(monkeypatch):
 
     for mod, name in ((K2, "quant_recurrent_seq_scan_plain"),
                       (K1, "int8_matmul_plain"), (KL, "int_layernorm_plain"),
-                      (KC, "quant_lstm_cell_plain"), (ref, "recurrent_step"),
+                      (KL, "int_layernorm_gates_plain"),
+                      (KC, "quant_lstm_cell_plain"),
+                      (KC, "quant_lstm_cell_step_plain"),
+                      (ref, "lstm_gate_acc"), (ref, "recurrent_step"),
                       (ref, "quant_lstm_cell"), (ref, "quant_gru_recurrent"),
                       (ref, "lstm_project"), (iops, "integer_layernorm")):
         monkeypatch.setattr(mod, name, refuse)
@@ -262,8 +299,9 @@ def _refuse_plain_versions(monkeypatch):
 
 @pytest.mark.parametrize("vi", [10, 12, 15])
 def test_cuda_stepwise_lstm_layer_never_reaches_plain(cuda, monkeypatch, vi):
-    """A stepwise LSTM layer on CUDA runs the GEMM, LayerNorm and cell
-    kernels only, and equals the hoisted sequence kernel."""
+    """A stepwise LSTM layer on CUDA runs the GEMM, the gate pass (one
+    LayerNorm launch a step) and the cell kernel only, and equals the
+    hoisted sequence kernel."""
     from repro_torch.core import recipe as R
     from repro_torch.core.calibrate import Stats, TapCollector
     from repro_torch.kernels import int8_matmul as K1
@@ -291,10 +329,9 @@ def test_cuda_stepwise_lstm_layer_never_reaches_plain(cuda, monkeypatch, vi):
     state0 = QL.initial_recurrent_state(spec, 3, cuda)
     ys, state = ops.quant_recurrent_seq_stepwise(arrays, spec, xs_q, state0)
     torch.cuda.synchronize()
-    n_ln = len(variant.gates) - (1 if variant.use_peephole else 0)
     gemms = 2 + int(variant.use_projection)
     assert (K1.launches, KL.launches, KC.launches) == (
-        before[0] + 5 * gemms, before[1] + 5 * n_ln, before[2] + 5)
+        before[0] + 5 * gemms, before[1] + 5, before[2] + 5)
     assert torch.equal(ys, hoisted[0])
     for leaf, want in zip(state, hoisted[1]):
         assert torch.equal(leaf, want)
