@@ -70,7 +70,21 @@
    integer states of every layer after the prefill and after each decode
    step, and every greedy token, must equal a plain-version run of the
    stack fed the same tokens; the LSTM serve is then repeated to show the
-   spread of tokens/s;
+   spread of tokens/s; then ``[float]``, the paper's float baseline: both
+   models served float (``--quant none``: the prompt teacher-forced
+   through the bundle's decode, 16 greedy tokens), where no kernel may
+   launch, with prompt and decode tokens/s beside the integer serves'; the
+   prompt teacher-forced through ``decode_step`` against ``forward``'s
+   last logits (F3); lstm-rnnt's float stack on the card against the CPU
+   on the same weights, all 10 layers at T 4 (each layer within 1e-4 of
+   its largest |output|, the logits by F3); post-training quantization:
+   ``calibrate.calibrate`` over 4 ``SyntheticLM`` batches (one batch's
+   ``Stats`` equal to ``calibration_stats``), the recipe on every layer
+   and an integer serve of the same prompt (the GEMM and the LSTM sequence
+   kernel 10 x (1 + 16) times each), with the share of greedy tokens it
+   agrees with the float serve on and the prefill logits' distance,
+   reported without a gate; and fake quantization on the card equal to
+   the CPU bit for bit at 10**6 values in each of 7 cases;
 9. runs a 4 x 32 prompt through all 10 layers of full-width ``lstm-rnnt``
    with the stepwise executor (``quantize_input -> stepwise ->
    dequantize_output``): the cell kernel must launch exactly 10 x 32
@@ -115,8 +129,9 @@
    the last line, ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before each served path (the two
-static serves, the stepwise pass, the two engine runs, the transformer's
-prefill and its two static serves) and read just after it; a kernel of the
+static serves, the two float serves and the PTQ serve, the stepwise pass,
+the two engine runs, the transformer's prefill and its two static serves)
+and read just after it; a kernel of the
 path that did not launch fails the run.  The kernels' JSON line counts each
 kernel's launches over the engine runs and the stepwise pass (the GEMM's
 also by shape), and kernel 5's over the transformer's prefill.  Each phase prints its
@@ -168,6 +183,10 @@ PREFILL_B, PREFILL_S = 2, 4096
 SERVE_B, SERVE_PROMPT, SERVE_MAX_LEN = 4, 32, 256
 FLASH_TIMED = dict(B=2, H=32, KVH=8, S=4096, D=128)  # causal, bf16
 BARRIER_CTAS = 128  # the sequence kernels' grid at full width
+# the [float] phase: the card against the CPU over all 10 layers of
+# lstm-rnnt at a cut length, and the PTQ calibration's SyntheticLM batches
+FLOAT_CPU_T = 4
+PTQ_BATCHES = 4
 
 
 def _gemm_timed():
@@ -945,6 +964,140 @@ def serve_full_width(dev, arch, repeats):
     return out, (params, qlayers, cfg)
 
 
+def float_full_width(dev, int_serves):
+    """[float]: the paper's float baseline at full width and its PTQ.
+
+    (a) serves full-width ``lstm-rnnt`` and ``gru-rnnt`` float (``--quant
+    none``: the prompt teacher-forced through the bundle's ``decode``, then
+    ``GEN`` greedy tokens), where no kernel may launch; (b) holds decode
+    against forward (F3); (c) holds lstm-rnnt's float stack on the card to
+    the CPU's on the same weights at T ``FLOAT_CPU_T`` (each layer within
+    ``CARD_CPU_RTOL`` of its largest |output|, the logits by F3); (d)
+    calibrates lstm-rnnt on ``PTQ_BATCHES`` SyntheticLM batches with
+    ``calibrate.calibrate`` (one batch's ``Stats`` must equal
+    ``calibration_stats``), quantizes every layer and serves the prompt
+    integer-only (kernels 1 and 4, 10 x (1 + GEN) launches each), reporting
+    how far it lands from the float serve; (e) holds fake quantization on
+    the card to the CPU bit for bit at 10**6 values a case."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.testing import float_checks as FC
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 products must stay float32 (TF32 on)")
+    out = {}
+    for arch in ("lstm-rnnt", "gru-rnnt"):
+        cfg = get_config(arch)
+        bundle, params = serve.build_bundle(cfg, dev)
+        prompt = serve.random_prompt(cfg, B, T, dev)
+        serve.reset_launch_counts()
+        res = serve.serve_bundle(bundle, params, prompt, GEN, SERVE_MAX_LEN)
+        what = f"float serve {cfg.name}"
+        path_launches(what, serve.launch_counts(),
+                      {name: 0 for name in serve.KERNELS})
+        toks = res.tokens
+        if tuple(toks.shape) != (B, GEN) or int(toks.min()) < 0 or \
+                int(toks.max()) >= cfg.vocab_size or not bool(
+                    torch.isfinite(res.logits.float()).all()):
+            raise AssertionError(f"{what}: bad tokens {toks} or logits")
+        ints = int_serves[arch]
+        log(f"[float] {cfg.name} float prompt tokens/s: "
+            f"{B * T / res.prefill_s:.1f}  decode tokens/s: "
+            f"{B * GEN / res.decode_s:.1f}; integer (this call's [serve]): "
+            f"{B * T / ints['prefill_s']:.1f} / "
+            f"{B * GEN / ints['decode_s']:.1f} (host clock)")
+        log(f"[float] {what} sample:", toks[0].tolist())
+        dec, fwd = FC.decode_against_forward(params, cfg, prompt)
+        ulps = FC.check_logits_f3(f"{cfg.name} decode against forward",
+                                  dec, fwd)
+        log(f"[float] {cfg.name}: decode_step teacher-forced over {T} "
+            f"tokens against forward: largest |d| {ulps:.3g} bf16 ulps of "
+            f"the row's largest |logit| (equal: {torch.equal(dec, fwd)})")
+        entry = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
+                 "int_prefill_s": ints["prefill_s"],
+                 "int_decode_s": ints["decode_s"],
+                 "sample": toks[0].tolist(), "decode_vs_forward_ulps": ulps}
+        if arch == "lstm-rnnt":
+            t0 = time.perf_counter()
+            errs = FC.card_against_cpu(params, FC.params_to(params, "cpu"),
+                                       cfg, prompt[:, :FLOAT_CPU_T])
+            log(f"[float] {cfg.name} card against CPU, B {B} T "
+                f"{FLOAT_CPU_T}, all {cfg.n_layers} layers: largest |d| over "
+                f"the layer's largest |output| "
+                f"{max(v for k, v in errs.items() if k != 'logits_ulps'):.3g}"
+                f" (limit {FC.CARD_CPU_RTOL}), logits "
+                f"{errs['logits_ulps']:.3g} bf16 ulps "
+                f"({time.perf_counter() - t0:.1f}s)")
+            entry["card_vs_cpu"] = errs
+            entry["ptq"] = ptq_full_width(dev, cfg, params, prompt, res)
+        out[arch] = entry
+    t0 = time.perf_counter()
+    n = FC.fake_quant_card_against_cpu(
+        torch.Generator(device=dev).manual_seed(7), dev)
+    log(f"[float] fake quant: {n} values in 7 cases, card equal to CPU bit "
+        f"for bit ({time.perf_counter() - t0:.1f}s)")
+    out["fake_quant_values"] = n
+    return out
+
+
+def ptq_full_width(dev, cfg, params, prompt, float_res):
+    """(d) of ``float_full_width``: calibrate, quantize, serve integer."""
+    import torch
+    from repro_torch.core import calibrate
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.models import lstm_lm
+
+    t0 = time.perf_counter()
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=T,
+                                  global_batch=B))
+    batches = [data.batch_at(step) for step in range(PTQ_BATCHES)]
+
+    def apply_fn(p, batch, collector):
+        tokens = torch.from_numpy(batch["tokens"]).to(dev)
+        lstm_lm.forward(p, cfg, tokens, collector=collector)
+
+    one = calibrate.calibrate(apply_fn, params, batches[:1])
+    want = lstm_lm.calibration_stats(
+        params, cfg, torch.from_numpy(batches[0]["tokens"]).to(dev))
+    if one.to_dict() != want.to_dict():
+        raise AssertionError("calibrate's Stats of one batch differ from "
+                             "calibration_stats")
+    stats = calibrate.calibrate(apply_fn, params, batches)
+    qlayers = lstm_lm.quantize_layers(params, cfg, stats)
+    torch.cuda.synchronize()
+    log(f"[float] {cfg.name} PTQ: calibrated on {PTQ_BATCHES} SyntheticLM "
+        f"batches of {B} x {T} ({len(stats.ranges)} taps; one batch equal "
+        f"to calibration_stats) and quantized {len(qlayers)} layers in "
+        f"{time.perf_counter() - t0:.1f}s")
+    scan = SCAN_OF[lstm_lm.rnn_cell(cfg)]
+    expect = {name: 0 for name in serve.KERNELS}
+    expect.update({"int8_matmul": cfg.n_layers * (1 + GEN),
+                   scan: cfg.n_layers * (1 + GEN)})
+    serve.reset_launch_counts()
+    res = serve.serve(params, qlayers, cfg, prompt, GEN)
+    counts = serve.launch_counts()
+    path_launches(f"PTQ serve {cfg.name}", counts, expect)
+    with torch.no_grad():
+        li, _ = lstm_lm.quant_prefill(
+            params, qlayers, cfg, prompt,
+            lstm_lm.init_quant_decode_state(qlayers, B, dev))
+        lf = lstm_lm.prefill(params, cfg, prompt)
+    rel = float((li.float() - lf.float()).abs().max() / lf.float().abs().max())
+    agree = float((res.tokens == float_res.tokens).float().mean())
+    first = float((res.tokens[:, 0] == float_res.tokens[:, 0]).float().mean())
+    log(f"[float] {cfg.name} PTQ integer serve against the float serve: "
+        f"greedy tokens agree {agree:.4f} ({first:.2f} of the first), "
+        f"max |logit_int - logit_float| / max |logit_float| at the prefill "
+        f"{rel:.4g} (reported, no gate)")
+    log("[float] PTQ serve sample:", res.tokens[0].tolist())
+    return {"launches": counts, "token_agreement": agree,
+            "first_token_agreement": first, "prefill_logit_rel_err": rel,
+            "taps": len(stats.ranges), "sample": res.tokens[0].tolist()}
+
+
 def engine_workload(cfg):
     """``ENGINE``'s requests for ``cfg``'s vocabulary."""
     from repro_torch.launch import engine as E
@@ -1380,7 +1533,7 @@ def prefill_full_width(dev, repeats=3):
 
     cfg = get_config(TRANSFORMER)
     t0 = time.perf_counter()
-    bundle, params = serve.build_transformer(cfg, dev)
+    bundle, params = serve.build_bundle(cfg, dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in params["layers"].values()) + sum(
         t.numel() for k, t in params.items() if k != "layers")
@@ -1495,9 +1648,9 @@ def serve_transformer_full_width(dev, model):
             log(f"[serve] {cfg.name}: int8 weights in "
                 f"{time.perf_counter() - t0:.2f}s")
         serve.reset_launch_counts()
-        res = serve.serve_transformer(bundle, params, prompt, GEN,
-                                      SERVE_MAX_LEN,
-                                      quantized_cache=quant == "int8")
+        res = serve.serve_bundle(bundle, params, prompt, GEN,
+                                 SERVE_MAX_LEN,
+                                 quantized_cache=quant == "int8")
         counts = serve.launch_counts()
         what = f"serve {cfg.name} quant={quant}"
         path_launches(what, counts, {name: 0 for name in serve.KERNELS})
@@ -1790,6 +1943,9 @@ def main() -> int:
     phases.done("stepwise lstm-rnnt")
     gru_serve, gru_model = serve_full_width(dev, "gru-rnnt", 0)
     phases.done("serve gru-rnnt")
+    float_serves = float_full_width(dev, {"lstm-rnnt": lstm_serve,
+                                          "gru-rnnt": gru_serve})
+    phases.done("float")
     models = {"gru-rnnt": gru_model, "lstm-rnnt": lstm_model}
     engines = []
     for arch, policy, ratio, speculate in ENGINE_RUNS:
@@ -1856,6 +2012,7 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"gpu": smi, "build_s": secs, "kernels": kernels,
                    "serve": [lstm_serve, gru_serve], "engine": engines,
+                   "float": float_serves,
                    "stepwise": stepwise, "prefill": prefill,
                    "transformer_serve": transformer_serve,
                    "grid_barrier": barrier,

@@ -104,6 +104,11 @@ class GRUCell(QuantRecurrentCell):
 CELLS: Dict[str, QuantRecurrentCell] = {"lstm": LSTMCell(), "gru": GRUCell()}
 
 
+def register_cell(cell: QuantRecurrentCell) -> None:
+    """Extension hook: make a new cell resolvable by ``spec.cell`` name."""
+    CELLS[cell.name] = cell
+
+
 def get_cell(spec) -> QuantRecurrentCell:
     """Resolve a quantized layer spec's cell descriptor."""
     name = getattr(spec, "cell", "lstm")

@@ -274,7 +274,7 @@ def sigmoid_q15(x, input_integer_bits: int = 3) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Integer reciprocal square root (for LayerNorm)
+# Integer reciprocal square root / reciprocal (LayerNorm, RMSNorm, softmax)
 # ---------------------------------------------------------------------------
 
 
@@ -315,3 +315,19 @@ def integer_rsqrt_multiplier(v, extra_pow2: int = 0
     y = _rsqrt_normalized64(top >> 1)  # Q2.29 in (1, sqrt(2)]
     y = torch.where((e & 1) != 0, _srdhm64(y, _c(_INV_SQRT2_Q31, y)), y)
     return _out(y), _out(2 + extra_pow2 - (e >> 1))
+
+
+def integer_recip_multiplier(x, extra_pow2: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(m0, shift) int32 with (1/x)*2**extra_pow2 ~= m0/2**31 * 2**shift.
+
+    For int32 x > 0.  The reference reads x as uint32 to count its leading
+    zeros and shifts in int32; the port does the same in int64 with the
+    int32 wrap, so every input gives the reference's bits.
+    """
+    x = _i64(x)
+    e = bit_length(x & 0xFFFFFFFF)  # x = m * 2**e, m in [0.5, 1)
+    m_q31 = _wrap32(x << (31 - e).clamp(min=0))  # MSB to bit 30
+    a = _wrap32((m_q31 - (1 << 30)) * 2)  # 2m - 1 in [0, 1), Q0.31
+    inv = _one_over_one_plus_x64(a)  # Q2.29 of 1/(2m) in (0.5, 1]
+    return _out(inv), _out(3 + extra_pow2 - e)

@@ -325,3 +325,20 @@ def quantize_gru_layer(params: Dict[str, Any], cfg: GRUConfig, stats: Stats,
         eff_carry=fp.quantize_multiplier(2.0**-15),
         eff_n=fp.quantize_multiplier(2.0**-30 / s_h), s_x=s_x, s_h=s_h)
     return arrays, spec
+
+
+def recipe_table(spec) -> Dict[str, str]:
+    """Human-readable Table-2 row dump for one quantized layer (benchmarks);
+    the reference's strings."""
+    rows = {"x": f"int8 asym s={spec.s_x:.3e} zp={spec.zp_x}",
+            "h": f"int8 asym s={spec.s_h:.3e} zp={spec.zp_h}"}
+    if spec.cell == "lstm":
+        rows["m"] = f"int8 asym s={spec.s_m:.3e} zp={spec.zp_m}"
+        rows["c"] = (f"int16 POT s={spec.s_c:.3e} (Q{spec.cell_int_bits}."
+                     f"{15 - spec.cell_int_bits})")
+    for g, gs in spec.gates:
+        rows[f"gate_{g}"] = (f"eff_x={gs.eff_x} eff_h={gs.eff_h} "
+                             f"eff_c={gs.eff_c} ln_out={gs.ln_out}")
+    if getattr(spec, "eff_proj", None):
+        rows["proj"] = f"eff={spec.eff_proj}"
+    return rows

@@ -1,8 +1,10 @@
-"""Serving on the GPU: the integer recurrent LM (LSTM or GRU) and the
-dense transformer family.
+"""Serving on the GPU: the integer recurrent LM (LSTM or GRU), its float
+baseline, and the dense transformer family.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch lstm-rnnt \
         --quant int8-lstm --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-rnnt \
+        --quant none --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-rnnt \
         --quant int8-gru --engine --slots 4 --requests 12 --chunk 4 \
         --speculate 4 --policy srf --oversubscribe 2.0
@@ -19,13 +21,19 @@ workload is synthetic (``--requests N``) or a JSON trace (``--trace``).
 Every layer of every step launches the int8 GEMM kernel once (hoisted input
 stage) and the cell's sequence kernel once (recurrent stage).
 
-A transformer (``--quant none``, the default, or ``int8``: int8 weights and
-an int8 KV cache) is served as the reference launcher's static path does:
-seeded bf16 init, the prompt teacher-forced through ``decode_step`` into a
-``--max-len`` cache, then greedy decoding.  Decode never reaches the flash
-kernel: only a prefill of more than 1024 positions does
-(``runtime.train_loop.make_serve_fns``).  ``--device cpu`` runs every path
-through the kernels' plain versions.
+A model bundle (``models/model_zoo.py``) is served as the reference
+launcher's static path does: seeded init, the prompt teacher-forced
+through the bundle's ``decode``, then greedy decoding.  That is a
+transformer (``--quant none``, the default, or ``int8``: int8 weights and
+an int8 KV cache, in a ``--max-len`` cache; decode never reaches the
+flash kernel, only a prefill of more than 1024 positions does,
+``runtime.train_loop.make_serve_fns``) or the float recurrent LM
+(``--quant none`` on ``lstm-rnnt`` / ``gru-rnnt``: the paper's accuracy
+baseline, plain PyTorch products, no kernel launched).  ``--quant int8``
+on the recurrent family is refused: its float cell cannot take int8
+weights (the reference raises a ``TypeError`` there at full width); the
+integer LM is ``--quant int8-lstm`` / ``int8-gru``.  ``--device cpu``
+runs every path through the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -126,7 +134,7 @@ def serve(params, qlayers, cfg, prompt: torch.Tensor, n_gen: int
 
 
 @dataclasses.dataclass
-class TransformerServeResult:
+class BundleServeResult:
     tokens: torch.Tensor  # (B, gen) int64 greedy tokens
     prefill_s: float
     decode_s: float
@@ -134,10 +142,11 @@ class TransformerServeResult:
     launches: Dict[str, int]  # kernel launches during prefill + decode
 
 
-def build_transformer(cfg, device, quant: str = "none", seed: int = 0):
-    """``(bundle, params)``: seeded bf16 init on ``device``; with ``quant
-    == "int8"`` the params and the bundle's cache are quantized, as the
-    reference launcher does."""
+def build_bundle(cfg, device, quant: str = "none", seed: int = 0):
+    """``(bundle, params)``: seeded init on ``device`` (a transformer's
+    params in bf16; the recurrent LM's the ones ``build_model`` draws
+    before calibrating); with ``quant == "int8"`` the params and the
+    bundle's cache are quantized, as the reference launcher does."""
     bundle = model_zoo.build(cfg)
     params = bundle.init(torch.Generator(device=device).manual_seed(seed),
                          device)
@@ -147,9 +156,9 @@ def build_transformer(cfg, device, quant: str = "none", seed: int = 0):
     return bundle, params
 
 
-def serve_transformer(bundle, params, prompt: torch.Tensor, n_gen: int,
-                      max_len: int, quantized_cache: bool = False
-                      ) -> TransformerServeResult:
+def serve_bundle(bundle, params, prompt: torch.Tensor, n_gen: int,
+                 max_len: int, quantized_cache: bool = False
+                 ) -> BundleServeResult:
     """Teacher-force ``prompt`` (B, P) through ``decode`` into a fresh
     cache, then ``n_gen`` greedy tokens; the first greedy token is fed
     back but not returned, as in the reference's greedy loop."""
@@ -174,22 +183,22 @@ def serve_transformer(bundle, params, prompt: torch.Tensor, n_gen: int,
         out.append(tok)
     _sync(device)
     t2 = time.perf_counter()
-    return TransformerServeResult(
+    return BundleServeResult(
         tokens=torch.cat(out, dim=1) if out else prompt.new_zeros((B, 0)),
         prefill_s=t1 - t0, decode_s=t2 - t1, logits=logits,
         launches={k: v - counts0[k] for k, v in launch_counts().items()})
 
 
-def _serve_transformer_cli(args, cfg, device) -> None:
+def _serve_bundle_cli(args, cfg, device) -> None:
     t0 = time.perf_counter()
-    bundle, params = build_transformer(cfg, device, args.quant)
+    bundle, params = build_bundle(cfg, device, args.quant)
     _sync(device)
     print(f"initialized {cfg.name} ({cfg.n_layers} layers, quant="
           f"{args.quant}) in {time.perf_counter() - t0:.1f}s "
           f"(device={device})")
     prompt = random_prompt(cfg, args.batch, args.prompt_len, device)
-    res = serve_transformer(bundle, params, prompt, args.gen, args.max_len,
-                            quantized_cache=args.quant == "int8")
+    res = serve_bundle(bundle, params, prompt, args.gen, args.max_len,
+                       quantized_cache=args.quant == "int8")
     print(f"arch={cfg.name} quant={args.quant} device={device}")
     print(f"prompt tokens/s: {args.batch * args.prompt_len / res.prefill_s:.1f}")
     if args.gen:
@@ -270,7 +279,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--quant", default="none",
                     choices=["none", "int8", *RECURRENT_QUANT],
-                    help="none/int8: a transformer in bf16 or with int8 "
+                    help="none: a transformer in bf16 or the float "
+                         "recurrent LM; int8: a transformer with int8 "
                          "weights and KV cache; int8-lstm/int8-gru: the "
                          "integer recurrent LM")
     ap.add_argument("--batch", type=int, default=4)
@@ -319,6 +329,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.engine and args.quant not in RECURRENT_QUANT:
         ap.error("--engine requires --quant int8-lstm or int8-gru")
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.quant == "int8" and cfg.family == "lstm":
+        raise SystemExit(
+            f"--quant int8 quantizes a transformer's weights and KV cache; "
+            f"{cfg.name}'s float cell cannot take int8 weights.  Serve the "
+            f"integer LM with --quant int8-{lstm_lm.rnn_cell(cfg)} or the "
+            f"float one with --quant none")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
@@ -328,7 +344,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             raise SystemExit(f"--quant {args.quant} serves the "
                              f"{'/'.join(model_zoo.PORTED)} families, got "
                              f"{cfg.name} ({cfg.family})")
-        _serve_transformer_cli(args, cfg, device)
+        _serve_bundle_cli(args, cfg, device)
         return
     want = args.quant.split("-", 1)[1]  # int8-gru -> gru
     if cfg.family != "lstm" or lstm_lm.rnn_cell(cfg) != want:

@@ -1,8 +1,8 @@
 """Token embedding + logits head (port of ``repro.layers.embedding``).
 
 Both tables may be int8 dicts (``quant_transformer.quantize_param_tree``);
-``qmm`` dequantizes them inside the lookup and the head.  The training
-loss (``cross_entropy``) is not ported yet.
+``qmm`` dequantizes them inside the lookup and the head.
+``cross_entropy`` is the LM loss (the QAT graph's objective).
 """
 from __future__ import annotations
 
@@ -34,3 +34,16 @@ def logits_head(params: Dict, x: torch.Tensor) -> torch.Tensor:
     if "lm_head" in params:
         return mm(x, params["lm_head"])
     return emb_logits(params["embedding"], x)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy in float32 over the labels that are not
+    ``ignore_id``."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = labels != ignore_id
+    idx = torch.where(mask, labels, 0).to(torch.int64)
+    ll = torch.gather(logits, -1, idx[..., None])[..., 0]
+    maskf = mask.to(torch.float32)
+    return ((lse - ll) * maskf).sum() / maskf.sum().clamp(min=1.0)

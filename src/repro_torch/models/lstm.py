@@ -1,8 +1,12 @@
 """Float LSTM reference: every topology variant of the paper (sec 2).
 
-Port of ``repro.models.lstm`` (without QAT): peephole, CIFG, projection
-and layer-norm flags compose freely.  The float graph is the calibration
-vehicle: a ``TapCollector`` passed through it records every Table-2 range.
+Port of ``repro.models.lstm``: peephole, CIFG, projection and layer-norm
+flags compose freely.  This float graph is (a) the accuracy baseline, (b)
+the calibration vehicle (a ``TapCollector`` passed through it records
+every Table-2 range) and (c) the QAT graph: with ``qat=True`` straight-
+through fake quantization wraps every Table-2 tensor, W and R kept
+un-concatenated (fig 16) so each product carries its own scale.
+``sparsify_params`` is the magnitude pruning of Table 1's sparse rows.
 """
 from __future__ import annotations
 
@@ -11,6 +15,8 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from ..core import fake_quant as fq
 
 GATES = ("i", "f", "z", "o")  # input, forget, update (cell), output
 
@@ -99,11 +105,12 @@ def _layernorm_stats(x: torch.Tensor) -> torch.Tensor:
 
 
 def lstm_cell(params: Dict[str, Any], cfg: LSTMConfig, x: torch.Tensor,
-              h: torch.Tensor, c: torch.Tensor, collector=None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              h: torch.Tensor, c: torch.Tensor, collector=None,
+              qat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """One float LSTM step (eqs 1-7).  x: (B, d_in); h: (B, d_out); c: (B, d_h).
 
     ``collector``: optional TapCollector registering every Table-2 range.
+    ``qat``: straight-through fake quant at the Table-2 tap points.
     """
     v = cfg.variant
 
@@ -112,24 +119,44 @@ def lstm_cell(params: Dict[str, Any], cfg: LSTMConfig, x: torch.Tensor,
 
     x = tap("x", x)
     h = tap("h", h)
+    if qat:
+        x = fq.fake_quant_asymmetric(x, bits=8)
+        h = fq.fake_quant_asymmetric(h, bits=8)
 
     def gate_preact(g: str, c_for_peephole: Optional[torch.Tensor]):
-        acc = x @ params["W"][g] + h @ params["R"][g]
+        W, R = params["W"][g], params["R"][g]
+        if qat:
+            W = fq.fake_quant_symmetric(W, bits=8)
+            R = fq.fake_quant_symmetric(R, bits=8)
+        acc = x @ W + h @ R
         if v.use_peephole and g != "z" and c_for_peephole is not None:
-            acc = acc + params["P"][g] * c_for_peephole
+            P = params["P"][g]
+            if qat:
+                P = fq.fake_quant_symmetric(P, bits=16)
+            acc = acc + P * c_for_peephole
         acc = tap(f"g_{g}", acc)  # Table-2 row g_lambda (LN output scale)
         if v.use_layernorm:
-            return _layernorm_stats(acc) * params["L"][g] + params["b"][g]
-        return acc + params["b"][g]
+            acc = _layernorm_stats(acc) * params["L"][g] + params["b"][g]
+        else:
+            acc = acc + params["b"][g]
+        if qat:
+            acc = fq.fake_quant_q(acc, fractional_bits=12)  # Q3.12 input
+        return acc
 
     f_t = torch.sigmoid(gate_preact("f", c))
     z_t = torch.tanh(gate_preact("z", None))
     i_t = 1.0 - f_t if v.use_cifg else torch.sigmoid(gate_preact("i", c))
     c_new = tap("c", i_t * z_t + f_t * c)
+    if qat:
+        c_new = fq.fake_quant_symmetric(c_new, bits=16, pot=True)
     o_t = torch.sigmoid(gate_preact("o", c_new))
     m_t = tap("m", o_t * torch.tanh(c_new))
     if v.use_projection:
-        h_new = m_t @ params["W_proj"] + params["b_proj"]
+        Wp = params["W_proj"]
+        if qat:
+            m_t = fq.fake_quant_asymmetric(m_t, bits=8)
+            Wp = fq.fake_quant_symmetric(Wp, bits=8)
+        h_new = m_t @ Wp + params["b_proj"]
     else:
         h_new = m_t
     return tap("h_out", h_new), c_new
@@ -137,7 +164,8 @@ def lstm_cell(params: Dict[str, Any], cfg: LSTMConfig, x: torch.Tensor,
 
 def lstm_layer(params: Dict[str, Any], cfg: LSTMConfig, xs: torch.Tensor,
                h0: Optional[torch.Tensor] = None,
-               c0: Optional[torch.Tensor] = None, collector=None
+               c0: Optional[torch.Tensor] = None, collector=None,
+               qat: bool = False
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Run a layer over time.  xs: (B, T, d_in) -> (B, T, d_out)."""
     B = xs.shape[0]
@@ -145,8 +173,35 @@ def lstm_layer(params: Dict[str, Any], cfg: LSTMConfig, xs: torch.Tensor,
     c = c0 if c0 is not None else xs.new_zeros((B, cfg.d_hidden))
     outs = []
     for t in range(xs.shape[1]):
-        h, c = lstm_cell(params, cfg, xs[:, t], h, c, collector)
+        h, c = lstm_cell(params, cfg, xs[:, t], h, c, collector, qat)
         outs.append(h)
     if not outs:
         return xs.new_zeros((B, 0, cfg.d_output)), (h, c)
     return torch.stack(outs, dim=1), (h, c)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def sparsify_params(params, sparsity: float):
+    """Magnitude pruning of the matmul weights (paper Table 1: 50% sparse).
+
+    Every 2-D leaf loses its ``k = round(size * sparsity)`` smallest
+    magnitudes: all entries with |w| at or below the k-th smallest |w|
+    become 0, so ties at that threshold go together.  Returns a new tree.
+    """
+    def prune(w):
+        if not isinstance(w, torch.Tensor) or w.ndim != 2:
+            return w
+        k = int(round(w.numel() * sparsity))
+        if k == 0:
+            return w
+        thresh = torch.sort(w.abs().reshape(-1)).values[k - 1]
+        return torch.where(w.abs() <= thresh, 0.0, w)
+
+    return _tree_map(prune, params)

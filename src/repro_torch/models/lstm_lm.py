@@ -1,16 +1,21 @@
-"""Stacked recurrent language model: float init + calibration + integer serving.
+"""Stacked recurrent language model: float serving, QAT, calibration and
+integer serving.
 
 Port of ``repro.models.lstm_lm``: 10 layers x 2048 hidden (the RNN-T
 encoder stack of the paper's Table 1), a bf16 embedding and a bf16 head.
 ``cfg.rnn_cell`` selects the cell: ``"lstm"`` (LN + a 640-wide projection)
-or ``"gru"`` (the LN reset-after GRU, no projection).  ``quantize_stack``
-calibrates the float stack and applies the Table-2 recipe; the step
-programs below then run the stack integer-only through the hand-written
-CUDA kernels (on CPU tensors, their plain versions).
+or ``"gru"`` (the LN reset-after GRU, no projection).  The float stack
+(``forward``, ``prefill``, ``decode_step``; ``loss_fn`` with ``qat``) is
+the paper's accuracy baseline and runs plain PyTorch products, as the
+reference runs them outside any Pallas kernel.  ``quantize_stack``
+calibrates it and applies the Table-2 recipe; the step programs below
+then run the stack integer-only through the hand-written CUDA kernels (on
+CPU tensors, their plain versions).
 
-The stacked decode state is ``{<cell state keys...>: [per-layer tensors],
-"len": counter}`` (LSTM ``{"h", "c", "len"}``, GRU ``{"h", "len"}``), its
-keys in the cell's declared leaf order.  Every helper iterates those keys,
+The stacked decode state (float leaves, or integer ones) is ``{<cell
+state keys...>: [per-layer tensors], "len": counter}`` (LSTM ``{"h", "c",
+"len"}``, GRU ``{"h", "len"}``), its keys in the cell's declared leaf
+order.  Every helper iterates those keys,
 so the serving engine and the state pool never name a leaf.  The helpers
 return new tensors and leave their inputs as they were.
 """
@@ -89,17 +94,73 @@ class _Prefixed:
         return self.collector.tap(self.prefix + name, x)
 
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor, collector=None
-            ) -> torch.Tensor:
-    """Float forward over ``(B, T)`` tokens -> bf16 logits ``(B, T, V)``."""
+def _float_layer(p, lc, x, layer_states, collector, qat):
+    """One float layer over ``x`` -> ``(ys, per-layer state tuple)``.
+
+    ``qat`` reaches only the LSTM (the QAT experiments target the paper's
+    own topology); the GRU float graph is baseline + calibration only.
+    """
+    if isinstance(lc, G.GRUConfig):
+        h0 = None if layer_states is None else layer_states[0]
+        ys, h = G.gru_layer(p, lc, x, h0, collector=collector)
+        return ys, (h,)
+    h0, c0 = (None, None) if layer_states is None else layer_states
+    ys, (h, c) = L.lstm_layer(p, lc, x, h0, c0, collector=collector, qat=qat)
+    return ys, (h, c)
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, states=None,
+            collector=None, qat: bool = False):
+    """Float forward over ``(B, T)`` tokens -> ``(bf16 logits (B, T, V),
+    new states)``; the new states are None unless ``states`` is given."""
+    keys = state_keys(cfg)
     x = emb.embed_tokens(params, tokens).to(torch.float32)
+    new_states = []
     for i, (p, lc) in enumerate(zip(params["lstm"], layer_cfgs(cfg))):
         col = _Prefixed(collector, f"l{i}/") if collector is not None else None
-        if isinstance(lc, G.GRUConfig):
-            x, _ = G.gru_layer(p, lc, x, collector=col)
-        else:
-            x, _ = L.lstm_layer(p, lc, x, collector=col)
-    return emb.logits_head(params, x.to(torch.bfloat16))
+        layer_states = (None if states is None else
+                        tuple(states[k][i] for k in keys))
+        x, st = _float_layer(p, lc, x, layer_states, col, qat)
+        new_states.append(st)
+    logits = emb.logits_head(params, x.to(torch.bfloat16))
+    if states is None:
+        return logits, None
+    out: Dict[str, Any] = {k: [s[j] for s in new_states]
+                           for j, k in enumerate(keys)}
+    out["len"] = states["len"] + tokens.shape[1]
+    return logits, out
+
+
+def loss_fn(params, cfg: ArchConfig, batch, qat: bool = False
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``{"tokens", "labels"}``,
+    tensors on the params' device) under the float or QAT graph."""
+    logits, _ = forward(params, cfg, batch["tokens"], qat=qat)
+    return emb.cross_entropy(logits, batch["labels"])
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, device="cuda"
+                      ) -> Dict[str, Any]:
+    """Float decode state: every cell leaf zero (float32), ``len`` 0."""
+    widths = {"h": stack_d_out(cfg), "c": cfg.d_rnn}
+    out: Dict[str, Any] = {
+        k: [torch.zeros((batch, widths[k]), device=device)
+            for _ in range(cfg.n_layers)]
+        for k in state_keys(cfg)}
+    out["len"] = torch.zeros((), dtype=torch.int32, device=device)
+    return out
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Float forward over the prompt -> last-position logits ``(B, V)``."""
+    logits, _ = forward(params, cfg, tokens)
+    return logits[:, -1]
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, states):
+    """One float step: ``(logits (B, V), new states)``."""
+    logits, new_states = forward(params, cfg, token, states=states)
+    return logits[:, -1], new_states
 
 
 def calibration_stats(params, cfg: ArchConfig, calib_tokens) -> Stats:
@@ -112,17 +173,23 @@ def calibration_stats(params, cfg: ArchConfig, calib_tokens) -> Stats:
     return stats
 
 
-def quantize_stack(params, cfg: ArchConfig, calib_tokens) -> list:
-    """Calibrate on ``calib_tokens`` and apply the Table-2 recipe per layer.
+def quantize_layers(params, cfg: ArchConfig, stats: Stats) -> list:
+    """Apply the Table-2 recipe to every layer from calibrated ``stats``.
 
     Returns one ``(arrays, spec)`` pair per recurrent layer, the arrays on
     the params' device; the cell's quantizer is picked by the config.
     """
-    stats = calibration_stats(params, cfg, calib_tokens)
     quantize_layer = (R.quantize_gru_layer if rnn_cell(cfg) == "gru"
                       else R.quantize_lstm_layer)
     return [quantize_layer(p, lc, stats, prefix=f"l{i}/")
             for i, (p, lc) in enumerate(zip(params["lstm"], layer_cfgs(cfg)))]
+
+
+def quantize_stack(params, cfg: ArchConfig, calib_tokens) -> list:
+    """Calibrate on ``calib_tokens`` and apply the Table-2 recipe per layer
+    (``quantize_layers``)."""
+    return quantize_layers(params, cfg,
+                           calibration_stats(params, cfg, calib_tokens))
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,19 @@
 
 ``build(cfg)`` returns a ``ModelBundle`` of plain functions:
 
-    init(generator, device)                -> params
-    prefill(params, batch)                 -> last-token logits (B, vocab)
-    init_state(batch, max_len, quantized)  -> decode cache
-    decode(params, token, state)           -> (logits (B, vocab), state)
+    init(generator, device="cuda")   -> params
+    prefill(params, batch)           -> last-token logits (B, vocab)
+    init_state(batch, max_len, quantized, device="cuda")
+                                     -> decode cache
+    decode(params, token, state)     -> (logits (B, vocab), state)
 
 for the ``dense`` and ``vlm`` families (``batch`` is ``{"tokens": (B, S)}``,
-plus ``"frontend_embeds": (B, F, d)`` for the VLM stub).  The training
-``loss`` and the dry-run's ``input_specs`` are not ported; the other
-families raise (ROADMAP Queue 1).
+plus ``"frontend_embeds": (B, F, d)`` for the VLM stub) and the ``lstm``
+family, the float recurrent LM of every ``rnn_cell`` (``lstm-rnnt``,
+``gru-rnnt``), whose state does not grow with ``max_len``.  Params and
+state go to the card unless the caller passes another device.  The
+training ``loss`` and the dry-run's ``input_specs`` are not ported; the
+other families raise (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -19,9 +23,9 @@ import dataclasses
 from typing import Callable
 
 from ..configs.base import ArchConfig
-from . import transformer
+from . import lstm_lm, transformer
 
-PORTED = ("dense", "vlm")
+PORTED = ("dense", "vlm", "lstm")
 
 
 @dataclasses.dataclass
@@ -38,9 +42,26 @@ def build(cfg: ArchConfig) -> ModelBundle:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"(ported: {', '.join(PORTED)}; ROADMAP Queue 1)")
+    if cfg.family == "lstm":
+        # one registration serves every cell: lstm_lm dispatches on
+        # cfg.rnn_cell, as the reference's does
+        def init(generator, device="cuda"):
+            return lstm_lm.init_params(generator, cfg, device)
+
+        def prefill(params, batch):
+            return lstm_lm.prefill(params, cfg, batch["tokens"])
+
+        def init_state(batch, max_len, quantized=False, device="cuda"):
+            return lstm_lm.init_decode_state(cfg, batch, device)
+
+        def decode(params, token, state):
+            return lstm_lm.decode_step(params, cfg, token, state)
+
+        return ModelBundle(cfg, init, prefill, init_state, decode)
+
     transformer.check_dense(cfg)
 
-    def init(generator, device=None):
+    def init(generator, device="cuda"):
         return transformer.init_params(generator, cfg, device)
 
     def prefill(params, batch):
@@ -48,7 +69,7 @@ def build(cfg: ArchConfig) -> ModelBundle:
             params, cfg, batch["tokens"],
             frontend_embeds=batch.get("frontend_embeds"))
 
-    def init_state(batch, max_len, quantized=False, device=None):
+    def init_state(batch, max_len, quantized=False, device="cuda"):
         return transformer.init_decode_cache(cfg, batch, max_len,
                                              quantized=quantized,
                                              device=device)

@@ -70,10 +70,10 @@ def quantize_param_tree(params, path: str = "") -> Any:
 def quantize_bundle(bundle: ModelBundle) -> ModelBundle:
     orig_init = bundle.init
 
-    def init(generator, device=None):
+    def init(generator, device="cuda"):
         return quantize_param_tree(orig_init(generator, device))
 
-    def init_state(batch, max_len, quantized=True, device=None):
+    def init_state(batch, max_len, quantized=True, device="cuda"):
         return bundle.init_state(batch, max_len, quantized=True,
                                  device=device)
 

@@ -512,7 +512,7 @@ def test_cuda_transformer_prefill_never_reaches_plain(cuda, monkeypatch):
 
     monkeypatch.setattr(KF, "flash_attention_plain", refuse)
     cfg = get_config("qwen3-4b", smoke=True)
-    bundle, params = serve.build_transformer(cfg, cuda)
+    bundle, params = serve.build_bundle(cfg, cuda)
     prefill, _ = train_loop.make_serve_fns(bundle, cuda, 2, 1100)
     for S, launched in ((1100, cfg.n_layers), (64, 0)):
         before = KF.launches
@@ -522,3 +522,36 @@ def test_cuda_transformer_prefill_never_reaches_plain(cuda, monkeypatch):
         assert KF.launches == before + launched
         assert logits.shape == (2, cfg.vocab_size)
         assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", ["lstm-rnnt", "gru-rnnt"])
+def test_float_lm_on_card(cuda, arch):
+    """The float stack (smoke width) on the card: teacher-forced decode
+    gives forward's last logits (F3), the card's stack equals the CPU's on
+    the same weights within ``CARD_CPU_RTOL`` a layer, and no kernel
+    launches (the float path runs plain PyTorch products)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lstm_lm
+    from repro_torch.testing import float_checks as FC
+
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = lstm_lm.init_params(gen, cfg, cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 8), generator=gen,
+                           device=cuda)
+    before = serve.launch_counts()
+    dec, fwd = FC.decode_against_forward(params, cfg, prompt)
+    FC.check_logits_f3("decode against forward", dec, fwd)
+    errs = FC.card_against_cpu(params, FC.params_to(params, "cpu"), cfg,
+                               prompt[:, :4])
+    assert max(v for k, v in errs.items() if k.startswith("layer")) <= \
+        FC.CARD_CPU_RTOL
+    assert serve.launch_counts() == before
+
+
+def test_fake_quant_card_matches_cpu(cuda):
+    from repro_torch.testing import float_checks as FC
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    assert FC.fake_quant_card_against_cpu(gen, cuda) == 7 * 10**6

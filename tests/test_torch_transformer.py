@@ -210,8 +210,7 @@ def test_unported_families_raise():
     for name in ("kimi-k2-1t-a32b", "grok-1-314b"):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             TZ.build(TR.get_config(name, smoke=True))
-    for name in ("falcon-mamba-7b", "whisper-tiny", "recurrentgemma-9b",
-                 "lstm-rnnt"):
+    for name in ("falcon-mamba-7b", "whisper-tiny", "recurrentgemma-9b"):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             TZ.build(TR.get_config(name, smoke=True))
 
@@ -418,8 +417,8 @@ def test_serve_matches_reference_greedy_loop():
     t_params = convert.params_from_numpy(jax.device_get(params))
     tcfg = TR.get_config("qwen3-4b", smoke=True)
     prompt = _tokens(cfg, 2, 5, seed=8)
-    res = tserve.serve_transformer(TZ.build(tcfg), t_params,
-                                   torch.from_numpy(prompt), 4, 16)
+    res = tserve.serve_bundle(TZ.build(tcfg), t_params,
+                              torch.from_numpy(prompt), 4, 16)
     decode = jax.jit(lambda p, t, s: JT.decode_step(p, cfg, t, s,
                                                     NO_CONSTRAIN))
     state = JT.init_decode_cache(cfg, 2, 16)
