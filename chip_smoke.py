@@ -84,7 +84,17 @@
    kernel 10 x (1 + 16) times each), with the share of greedy tokens it
    agrees with the float serve on and the prefill logits' distance,
    reported without a gate; and fake quantization on the card equal to
-   the CPU bit for bit at 10**6 values in each of 7 cases;
+   the CPU bit for bit at 10**6 values in each of 7 cases; then
+   ``[train]``, training on the card through ``launch/train.py``: 8 float
+   steps of full-width ``lstm-rnnt`` at B 8 x T 128 (the loss must fall;
+   async checkpoints restored bit for bit, and the step after the middle
+   one resumed from it to the uninterrupted run's loss bit for bit; the
+   device's busy share of a profiled step; PTQ of the trained params
+   against their float serve, reported), 4 QAT steps, 2 full-width
+   ``gru-rnnt`` steps (no kernel may launch), a 2-layer cut's step on the
+   card against the CPU, kernel 5 refusing to run under autograd, and a
+   ``qwen1.5-0.5b`` smoke step on the card against the CPU
+   (``testing/train_checks.py``);
 9. runs a 4 x 32 prompt through all 10 layers of full-width ``lstm-rnnt``
    with the stepwise executor (``quantize_input -> stepwise ->
    dequantize_output``): the cell kernel must launch exactly 10 x 32
@@ -129,7 +139,8 @@
    the last line, ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before each served path (the two
-static serves, the two float serves and the PTQ serve, the stepwise pass,
+static serves, the two float serves and the PTQ serves, the train runs,
+the stepwise pass,
 the two engine runs, the transformer's prefill and its two static serves)
 and read just after it; a kernel of the
 path that did not launch fails the run.  The kernels' JSON line counts each
@@ -153,6 +164,7 @@ Full results also go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -187,6 +199,20 @@ BARRIER_CTAS = 128  # the sequence kernels' grid at full width
 # lstm-rnnt at a cut length, and the PTQ calibration's SyntheticLM batches
 FLOAT_CPU_T = 4
 PTQ_BATCHES = 4
+# the [train] phase: full-width lstm-rnnt through the train CLI (float with
+# checkpoints, then QAT), gru-rnnt, a cut stack on the card against the CPU
+# and a smoke dense step on the card against the CPU
+TRAIN_B, TRAIN_T, TRAIN_LR = 8, 128, 3e-3
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 4
+# the float run's tokens come from the first 16 ids (test_system.py's rule
+# for training the LSTM): over the whole 4096 a random init already
+# predicts the uniform ln 4096 and 8 steps cannot learn the affine rule, so
+# its loss only wanders (on an H100: 8.3286 -> 8.4578; PERF.md section 6)
+TRAIN_DATA_VOCAB = 16
+TRAIN_PROF_T = 16
+TRAIN_QAT_STEPS, TRAIN_GRU_STEPS = 4, 2
+TRAIN_CPU = dict(n_layers=2, B=2, T=16)
+TRAIN_DENSE, TRAIN_DENSE_S = "qwen1.5-0.5b", 64
 
 
 def _gemm_timed():
@@ -1042,8 +1068,9 @@ def float_full_width(dev, int_serves):
     return out
 
 
-def ptq_full_width(dev, cfg, params, prompt, float_res):
-    """(d) of ``float_full_width``: calibrate, quantize, serve integer."""
+def ptq_full_width(dev, cfg, params, prompt, float_res, data_vocab=None):
+    """(d) of ``float_full_width``: calibrate (on ``SyntheticLM`` over the
+    first ``data_vocab`` ids, all by default), quantize, serve integer."""
     import torch
     from repro_torch.core import calibrate
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -1051,8 +1078,8 @@ def ptq_full_width(dev, cfg, params, prompt, float_res):
     from repro_torch.models import lstm_lm
 
     t0 = time.perf_counter()
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=T,
-                                  global_batch=B))
+    data = SyntheticLM(DataConfig(vocab_size=data_vocab or cfg.vocab_size,
+                                  seq_len=T, global_batch=B))
     batches = [data.batch_at(step) for step in range(PTQ_BATCHES)]
 
     def apply_fn(p, batch, collector):
@@ -1096,6 +1123,214 @@ def ptq_full_width(dev, cfg, params, prompt, float_res):
     return {"launches": counts, "token_agreement": agree,
             "first_token_agreement": first, "prefill_logit_rel_err": rel,
             "taps": len(stats.ranges), "sample": res.tokens[0].tolist()}
+
+
+def _train_cli(*flags):
+    """``python -m repro_torch.launch.train`` in this process (its log lines
+    printed), on the card."""
+    from repro_torch.launch import train
+
+    return train.run(train.parse_args(
+        ["--batch", str(TRAIN_B), "--seq", str(TRAIN_T), "--lr",
+         str(TRAIN_LR), *flags]))
+
+
+def _train_run_summary(what, res, cfg, held):
+    """Finite losses; step ms and trained tokens/s over the steps after the
+    first (which pays the allocator's warm-up); the peak device memory
+    over the ``held`` bytes that earlier phases kept allocated."""
+    import torch
+
+    if not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"{what}: a loss is not finite: {res.losses}")
+    steady = sorted(res.step_s[1:] or res.step_s)
+    step_s = steady[len(steady) // 2]
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    log(f"[train] {what}: losses {[round(v, 4) for v in res.losses]}; "
+        f"first step {res.step_s[0] * 1e3:.1f} ms, then median "
+        f"{step_s * 1e3:.1f} ms a step ({TRAIN_B * TRAIN_T / step_s:.1f} "
+        f"trained tokens/s, host clock), peak memory {peak:.2f} GiB over "
+        f"the {held / 2**30:.2f} GiB held before the run")
+    return {"arch": cfg.name, "losses": res.losses, "step_s": res.step_s,
+            "median_step_s": step_s,
+            "tokens_per_s": TRAIN_B * TRAIN_T / step_s,
+            "peak_mem_gib": peak, "held_before_gib": held / 2**30}
+
+
+def train_full_width(dev):
+    """[train]: the training path on the card (no kernel launched: the
+    train step runs plain PyTorch and autograd, as the reference runs XLA).
+
+    (a) ``launch/train.py`` on full-width lstm-rnnt, B ``TRAIN_B`` x T
+    ``TRAIN_T``, ``SyntheticLM`` over the first ``TRAIN_DATA_VOCAB`` ids,
+    AdamW at lr ``TRAIN_LR``: ``TRAIN_STEPS`` float steps with an async
+    checkpoint every ``TRAIN_CKPT_EVERY``; every loss finite, the last
+    below the first; the last checkpoint restores into fresh trees
+    bit-equal to the run's final state, and from the middle one the next
+    step's loss equals the uninterrupted run's bit for bit; one more step
+    under the profiler at T ``TRAIN_PROF_T`` gives the device's busy share;
+    (b) ``TRAIN_QAT_STEPS`` QAT steps from fresh params over the whole
+    vocabulary; (c) ``TRAIN_GRU_STEPS`` float steps of full-width
+    gru-rnnt; (d) one step of full-width lstm-rnnt cut to
+    ``TRAIN_CPU["n_layers"]`` layers on the card against the CPU
+    (``testing/train_checks.py``); (e) kernel 5 refuses to run under
+    autograd; (f) one step of ``TRAIN_DENSE`` at smoke width, S
+    ``TRAIN_DENSE_S``, on the card against the CPU."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch import tree_util as tu
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.testing import train_checks as TC
+
+    out = {}
+    cfg = get_config("lstm-rnnt")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        serve.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        res = _train_cli("--arch", cfg.name, "--steps", str(TRAIN_STEPS),
+                         "--data-vocab", str(TRAIN_DATA_VOCAB),
+                         "--ckpt-dir", ckpt_dir, "--ckpt-every",
+                         str(TRAIN_CKPT_EVERY))
+        path_launches("train lstm-rnnt", serve.launch_counts(),
+                      {name: 0 for name in serve.KERNELS})
+        run = _train_run_summary(f"{cfg.name} float", res, cfg, held)
+        if not res.losses[-1] < res.losses[0]:
+            raise AssertionError(f"{cfg.name}: the loss did not fall over "
+                                 f"{TRAIN_STEPS} steps: {res.losses}")
+        # (a) the checkpoints, restored into fresh trees
+        t0 = time.perf_counter()
+        art, data = res.art, res.data
+        bundle = model_zoo.build(cfg)
+        fresh = bundle.init(torch.Generator(device=dev).manual_seed(1), dev)
+        like = (fresh, art.init_opt(fresh))
+        mgr = CheckpointManager(ckpt_dir)
+        if sorted(mgr.steps()) != list(range(TRAIN_CKPT_EVERY,
+                                             TRAIN_STEPS + 1,
+                                             TRAIN_CKPT_EVERY)):
+            raise AssertionError(f"checkpoints {sorted(mgr.steps())}")
+        (p_end, o_end), _ = mgr.restore(TRAIN_STEPS, like)
+        n_leaves = 0
+        for got, want in zip(tu.leaves((p_end, o_end)),
+                             tu.leaves((res.params, res.opt_state)),
+                             strict=True):
+            if got.dtype != want.dtype or got.device != want.device or \
+                    not torch.equal(got, want):
+                raise AssertionError("a restored leaf differs from the "
+                                     "saved one")
+            n_leaves += 1
+        del p_end, o_end
+        k = TRAIN_CKPT_EVERY
+        (p_k, o_k), _ = mgr.restore(k, like)
+        resumed = float(art.step_fn(p_k, o_k, data.batch_at(k))[2]["loss"])
+        if resumed != res.losses[k]:
+            raise AssertionError(f"step {k} from the checkpoint: loss "
+                                 f"{resumed!r}, uninterrupted "
+                                 f"{res.losses[k]!r}")
+        del p_k, o_k, fresh, like
+        ckpt_s = time.perf_counter() - t0
+    log(f"[train] {cfg.name} checkpoints at steps {k} and {TRAIN_STEPS} "
+        f"(async): {n_leaves} leaves restored bit-equal; step {k} resumed "
+        f"from its checkpoint gives loss {resumed!r}, the uninterrupted "
+        f"run's bit for bit ({ckpt_s:.1f}s)")
+    # the device's busy share, from the same step at T TRAIN_PROF_T: the
+    # profiler's events of a T TRAIN_T step (~10**6) take minutes to sum
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_PROF_T,
+                                   global_batch=TRAIN_B)).batch_at(0)
+
+    def one_step():
+        t0 = time.perf_counter()
+        art.step_fn(res.params, res.opt_state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall_s = sorted(one_step() for _ in range(3))[1]
+    busy_ms, prof_wall_s = device_busy_ms(one_step)
+    share = None if busy_ms is None else busy_ms / 1e3 / wall_s
+    log(f"[train] {cfg.name} float step at B {TRAIN_B} T {TRAIN_PROF_T}: "
+        f"{wall_s * 1e3:.1f} ms (median of 3, host clock); under the "
+        f"profiler ({prof_wall_s * 1e3:.1f} ms) the device is busy "
+        f"{busy_ms} ms: busy share {share}")
+    # PTQ of the trained params, as a log (PERF.md section 7): the float
+    # serve of a prompt from the training rule against the integer serve
+    prompt = torch.from_numpy(SyntheticLM(DataConfig(
+        vocab_size=TRAIN_DATA_VOCAB, seq_len=T, global_batch=B)).batch_at(
+            TRAIN_STEPS + 1)["tokens"]).to(dev)
+    with torch.no_grad():
+        float_res = serve.serve_bundle(model_zoo.build(cfg), res.params,
+                                       prompt, GEN, SERVE_MAX_LEN)
+    log(f"[train] {cfg.name} after {TRAIN_STEPS} steps, float serve "
+        f"sample: {float_res.tokens[0].tolist()}")
+    run["ptq"] = ptq_full_width(dev, cfg, res.params, prompt, float_res,
+                                data_vocab=TRAIN_DATA_VOCAB)
+    run.update(checkpoint_leaves=n_leaves, resumed_loss=resumed,
+               checkpoint_s=ckpt_s, profiled_T=TRAIN_PROF_T,
+               profiled_step_s=wall_s, device_busy_ms=busy_ms,
+               profiled_wall_s=prof_wall_s, busy_share=share)
+    out["lstm-rnnt float"] = run
+    del res, art, batch
+    torch.cuda.empty_cache()
+
+    # (b) QAT, (c) gru-rnnt
+    for arch, steps, flags, what in (
+            ("lstm-rnnt", TRAIN_QAT_STEPS, ("--qat",), "lstm-rnnt QAT"),
+            ("gru-rnnt", TRAIN_GRU_STEPS, (), "gru-rnnt float")):
+        serve.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        res = _train_cli("--arch", arch, "--steps", str(steps), *flags)
+        path_launches(f"train {what}", serve.launch_counts(),
+                      {name: 0 for name in serve.KERNELS})
+        out[what] = _train_run_summary(what, res, get_config(arch), held)
+        del res
+        torch.cuda.empty_cache()
+
+    # (d) card against CPU
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CPU["n_layers"])
+    params = model_zoo.build(cut).init(
+        torch.Generator(device=dev).manual_seed(2), dev)
+    batch = SyntheticLM(DataConfig(
+        vocab_size=cut.vocab_size, seq_len=TRAIN_CPU["T"],
+        global_batch=TRAIN_CPU["B"])).batch_at(0)
+    t0 = time.perf_counter()
+    cmp = TC.step_card_against_cpu(cut, params, batch, OptConfig(lr=TRAIN_LR))
+    log(f"[train] {cfg.name} cut to {cut.n_layers} layers, B "
+        f"{TRAIN_CPU['B']} T {TRAIN_CPU['T']}, one step on the card against "
+        f"the CPU: loss {cmp['card']['loss']!r} / {cmp['cpu']['loss']!r} "
+        f"(relative {cmp['loss_rel']:.3g}, limit {TC.LOSS_RTOL}), grad_norm "
+        f"{cmp['card']['grad_norm']!r} / {cmp['cpu']['grad_norm']!r} "
+        f"(relative {cmp['grad_norm_rel']:.3g}, limit {TC.GNORM_RTOL}) "
+        f"({time.perf_counter() - t0:.1f}s)")
+    out["card_vs_cpu"] = cmp
+    del params
+
+    # (e) kernel 5 under autograd
+    out["flash_refusal"] = TC.flash_refuses_grad(dev)
+    log(f"[train] flash_attention on CUDA tensors that require grad "
+        f"raises: {out['flash_refusal']!r}")
+
+    # (f) the dense transformer's step
+    dcfg = get_config(TRAIN_DENSE, smoke=True)
+    params = model_zoo.build(dcfg).init(
+        torch.Generator(device=dev).manual_seed(3), dev)
+    batch = SyntheticLM(DataConfig(vocab_size=dcfg.vocab_size,
+                                   seq_len=TRAIN_DENSE_S,
+                                   global_batch=2)).batch_at(0)
+    cmp = TC.step_card_against_cpu(dcfg, params, batch,
+                                   OptConfig(lr=TRAIN_LR))
+    log(f"[train] {dcfg.name} S {TRAIN_DENSE_S}, one step on the card "
+        f"against the CPU: loss relative {cmp['loss_rel']:.3g}, grad_norm "
+        f"relative {cmp['grad_norm_rel']:.3g} (limit {TC.BF16_RTOL})")
+    out["dense_card_vs_cpu"] = cmp
+    return out
 
 
 def engine_workload(cfg):
@@ -1946,6 +2181,8 @@ def main() -> int:
     float_serves = float_full_width(dev, {"lstm-rnnt": lstm_serve,
                                           "gru-rnnt": gru_serve})
     phases.done("float")
+    train = train_full_width(dev)
+    phases.done("train")
     models = {"gru-rnnt": gru_model, "lstm-rnnt": lstm_model}
     engines = []
     for arch, policy, ratio, speculate in ENGINE_RUNS:
@@ -2012,7 +2249,7 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"gpu": smi, "build_s": secs, "kernels": kernels,
                    "serve": [lstm_serve, gru_serve], "engine": engines,
-                   "float": float_serves,
+                   "float": float_serves, "train": train,
                    "stepwise": stepwise, "prefill": prefill,
                    "transformer_serve": transformer_serve,
                    "grid_barrier": barrier,

@@ -9,6 +9,9 @@ package:
   keep their keys, so the transformer's stacked ``(L, ...)`` layer leaves
   and its int8 ``{"q": (L, in, out), "s": (L, out)}`` leaves carry over
   as they are);
+* ``opt_state_from_numpy``: the reference train step's optimizer state
+  -> the port's (``runtime.train_loop.make_train_step`` keeps the same
+  layout);
 * ``qlayers_from_numpy``: the reference's quantized ``[(arrays, spec)]``
   list, each spec given as ``dataclasses.asdict(spec)`` -> the port's
   ``(arrays, QLSTMSpec | QGRUSpec)`` list.
@@ -22,6 +25,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from . import tree_util as tu
 from .core.recipe import GateSpec, QGRUSpec, QLSTMSpec
 
 
@@ -35,16 +39,23 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
 
 
 def _tree(x, device):
-    if isinstance(x, dict):
-        return {k: _tree(v, device) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return type(x)(_tree(v, device) for v in x)
-    return tensor_from_numpy(x, device)
+    return tu.tree_map(lambda a: tensor_from_numpy(a, device), x)
 
 
 def params_from_numpy(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """A reference param tree (numpy leaves) -> the port's params."""
     return _tree(params, device)
+
+
+def opt_state_from_numpy(state: Dict[str, Any], device="cpu"
+                         ) -> Dict[str, Any]:
+    """The reference's ``{"inner": {"mu", "nu", "step"} (AdamW) or {"v",
+    "step"} (Adafactor, each ``v`` leaf ``{"vr", "vc"}`` or ``{"v"}``),
+    ["ef_residual"]}`` (numpy leaves) -> the port's state of the same
+    layout: float32 moments, the int32 step as a 0-d tensor."""
+    if set(state) - {"inner", "ef_residual"} or "step" not in state["inner"]:
+        raise ValueError(f"not a train-step optimizer state: {sorted(state)}")
+    return _tree(state, device)
 
 
 def _pair(v):

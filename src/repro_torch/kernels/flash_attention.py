@@ -28,6 +28,10 @@ units (64 x 64 tiles).  ``kernel_tiles`` says which tiles a call runs at.
 kernel's semantics.  ``layers.attention.flash_attention`` pre-scales q in
 its own dtype instead, as the reference layer does, and passes
 ``scale=1.0``.
+
+Only the forward is ported: under autograd on the card the kernel
+refuses (see ``flash_attention``); the reference's custom VJP comes with
+the kernel's backward.
 """
 from __future__ import annotations
 
@@ -145,11 +149,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     whatever ``block_q``/``block_k`` say; CPU tensors take the plain
     version at ``block_q`` x ``block_k``.  Each of q, k, v needs a
     contiguous last axis; the other axes are read through their strides.
+
+    The kernel has no backward yet: on CUDA tensors that autograd would
+    differentiate it raises rather than return an output cut off from the
+    gradient.  The plain version on the CPU is differentiable.
     """
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, q_offset=q_offset,
                                      block_q=block_q, block_k=block_k)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the flash-attention kernel has no backward yet (ROADMAP Queue 1 "
+            "item 9): train at S <= 1024, where the model takes "
+            "full_attention, or run this forward under torch.no_grad()")
     _check_shapes(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]

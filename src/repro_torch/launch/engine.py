@@ -57,6 +57,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import tree_util as tu
 from ..models import lstm_lm
 from ..runtime.fault import StepWatchdog
 from .scheduler import Scheduler, StreamView, get_scheduler
@@ -281,11 +282,7 @@ class MigratedStream:
 
 def _host(tree):
     """Host numpy copy of a (batch-1) state tree: what the pool parks."""
-    if isinstance(tree, dict):
-        return {k: _host(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_host(v) for v in tree]
-    return tree.detach().cpu().numpy()
+    return tu.tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def _engine_step_fns(qlayers, cfg):

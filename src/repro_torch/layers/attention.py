@@ -14,7 +14,8 @@ Port of the forward paths of ``repro.layers.attention``:
 The training backward of ``flash_attention`` (the reference's custom VJP)
 and its triangular-schedule environment toggle are not ported: the
 default rectangular schedule defines the result, and the kernel skips only
-tiles that schedule leaves unchanged.
+tiles that schedule leaves unchanged.  On the CPU autograd differentiates
+the plain version; on the card the kernel refuses to run under autograd.
 """
 from __future__ import annotations
 

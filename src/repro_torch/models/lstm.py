@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import tree_util as tu
 from ..core import fake_quant as fq
 
 GATES = ("i", "f", "z", "o")  # input, forget, update (cell), output
@@ -104,6 +105,21 @@ def _layernorm_stats(x: torch.Tensor) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + 1e-12)
 
 
+def qat_weights(params: Dict[str, Any], cfg: LSTMConfig) -> Dict[str, Any]:
+    """``params`` with every weight the QAT graph quantizes (W, R, the
+    peepholes, W_proj) fake-quantized, the other leaves as they are."""
+    out = dict(params)
+    for name in ("W", "R"):
+        out[name] = {g: fq.fake_quant_symmetric(w, bits=8)
+                     for g, w in params[name].items()}
+    if cfg.variant.use_peephole:
+        out["P"] = {g: fq.fake_quant_symmetric(w, bits=16)
+                    for g, w in params["P"].items()}
+    if cfg.variant.use_projection:
+        out["W_proj"] = fq.fake_quant_symmetric(params["W_proj"], bits=8)
+    return out
+
+
 def lstm_cell(params: Dict[str, Any], cfg: LSTMConfig, x: torch.Tensor,
               h: torch.Tensor, c: torch.Tensor, collector=None,
               qat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,6 +128,12 @@ def lstm_cell(params: Dict[str, Any], cfg: LSTMConfig, x: torch.Tensor,
     ``collector``: optional TapCollector registering every Table-2 range.
     ``qat``: straight-through fake quant at the Table-2 tap points.
     """
+    return _cell(qat_weights(params, cfg) if qat else params, cfg, x, h, c,
+                 collector, qat)
+
+
+def _cell(params, cfg: LSTMConfig, x, h, c, collector, qat):
+    """``lstm_cell`` on weights already fake-quantized where ``qat``."""
     v = cfg.variant
 
     def tap(name, t):
@@ -124,16 +146,9 @@ def lstm_cell(params: Dict[str, Any], cfg: LSTMConfig, x: torch.Tensor,
         h = fq.fake_quant_asymmetric(h, bits=8)
 
     def gate_preact(g: str, c_for_peephole: Optional[torch.Tensor]):
-        W, R = params["W"][g], params["R"][g]
-        if qat:
-            W = fq.fake_quant_symmetric(W, bits=8)
-            R = fq.fake_quant_symmetric(R, bits=8)
-        acc = x @ W + h @ R
+        acc = x @ params["W"][g] + h @ params["R"][g]
         if v.use_peephole and g != "z" and c_for_peephole is not None:
-            P = params["P"][g]
-            if qat:
-                P = fq.fake_quant_symmetric(P, bits=16)
-            acc = acc + P * c_for_peephole
+            acc = acc + params["P"][g] * c_for_peephole
         acc = tap(f"g_{g}", acc)  # Table-2 row g_lambda (LN output scale)
         if v.use_layernorm:
             acc = _layernorm_stats(acc) * params["L"][g] + params["b"][g]
@@ -152,11 +167,9 @@ def lstm_cell(params: Dict[str, Any], cfg: LSTMConfig, x: torch.Tensor,
     o_t = torch.sigmoid(gate_preact("o", c_new))
     m_t = tap("m", o_t * torch.tanh(c_new))
     if v.use_projection:
-        Wp = params["W_proj"]
         if qat:
             m_t = fq.fake_quant_asymmetric(m_t, bits=8)
-            Wp = fq.fake_quant_symmetric(Wp, bits=8)
-        h_new = m_t @ Wp + params["b_proj"]
+        h_new = m_t @ params["W_proj"] + params["b_proj"]
     else:
         h_new = m_t
     return tap("h_out", h_new), c_new
@@ -167,25 +180,25 @@ def lstm_layer(params: Dict[str, Any], cfg: LSTMConfig, xs: torch.Tensor,
                c0: Optional[torch.Tensor] = None, collector=None,
                qat: bool = False
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Run a layer over time.  xs: (B, T, d_in) -> (B, T, d_out)."""
+    """Run a layer over time.  xs: (B, T, d_in) -> (B, T, d_out).
+
+    Under ``qat`` the weights are fake-quantized once for the whole
+    sequence: each step would quantize them to the same values, and
+    autograd would keep one copy of every quantized weight per step (~60
+    GB over full-width lstm-rnnt at T 128).
+    """
     B = xs.shape[0]
     h = h0 if h0 is not None else xs.new_zeros((B, cfg.d_output))
     c = c0 if c0 is not None else xs.new_zeros((B, cfg.d_hidden))
+    if qat:
+        params = qat_weights(params, cfg)
     outs = []
     for t in range(xs.shape[1]):
-        h, c = lstm_cell(params, cfg, xs[:, t], h, c, collector, qat)
+        h, c = _cell(params, cfg, xs[:, t], h, c, collector, qat)
         outs.append(h)
     if not outs:
         return xs.new_zeros((B, 0, cfg.d_output)), (h, c)
     return torch.stack(outs, dim=1), (h, c)
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def sparsify_params(params, sparsity: float):
@@ -204,4 +217,4 @@ def sparsify_params(params, sparsity: float):
         thresh = torch.sort(w.abs().reshape(-1)).values[k - 1]
         return torch.where(w.abs() <= thresh, 0.0, w)
 
-    return _tree_map(prune, params)
+    return tu.tree_map(prune, params)

@@ -4,18 +4,20 @@
 ``build(cfg)`` returns a ``ModelBundle`` of plain functions:
 
     init(generator, device="cuda")   -> params
+    loss(params, batch)              -> mean next-token cross-entropy
     prefill(params, batch)           -> last-token logits (B, vocab)
     init_state(batch, max_len, quantized, device="cuda")
                                      -> decode cache
     decode(params, token, state)     -> (logits (B, vocab), state)
 
 for the ``dense`` and ``vlm`` families (``batch`` is ``{"tokens": (B, S)}``,
-plus ``"frontend_embeds": (B, F, d)`` for the VLM stub) and the ``lstm``
-family, the float recurrent LM of every ``rnn_cell`` (``lstm-rnnt``,
-``gru-rnnt``), whose state does not grow with ``max_len``.  Params and
+plus ``"labels"`` for the loss and ``"frontend_embeds": (B, F, d)`` for the
+VLM stub) and the ``lstm`` family, the float recurrent LM of every
+``rnn_cell`` (``lstm-rnnt``, ``gru-rnnt``), whose state does not grow with
+``max_len``.  Params and
 state go to the card unless the caller passes another device.  The
-training ``loss`` and the dry-run's ``input_specs`` are not ported; the
-other families raise (ROADMAP Queue 1).
+dry-run's ``input_specs`` is not ported; the other families raise
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ PORTED = ("dense", "vlm", "lstm")
 class ModelBundle:
     cfg: ArchConfig
     init: Callable
+    loss: Callable
     prefill: Callable
     init_state: Callable
     decode: Callable
@@ -48,6 +51,9 @@ def build(cfg: ArchConfig) -> ModelBundle:
         def init(generator, device="cuda"):
             return lstm_lm.init_params(generator, cfg, device)
 
+        def loss(params, batch):
+            return lstm_lm.loss_fn(params, cfg, batch)
+
         def prefill(params, batch):
             return lstm_lm.prefill(params, cfg, batch["tokens"])
 
@@ -57,12 +63,15 @@ def build(cfg: ArchConfig) -> ModelBundle:
         def decode(params, token, state):
             return lstm_lm.decode_step(params, cfg, token, state)
 
-        return ModelBundle(cfg, init, prefill, init_state, decode)
+        return ModelBundle(cfg, init, loss, prefill, init_state, decode)
 
     transformer.check_dense(cfg)
 
     def init(generator, device="cuda"):
         return transformer.init_params(generator, cfg, device)
+
+    def loss(params, batch):
+        return transformer.loss_fn(params, cfg, batch)
 
     def prefill(params, batch):
         return transformer.prefill(
@@ -77,4 +86,4 @@ def build(cfg: ArchConfig) -> ModelBundle:
     def decode(params, token, state):
         return transformer.decode_step(params, cfg, token, state)
 
-    return ModelBundle(cfg, init, prefill, init_state, decode)
+    return ModelBundle(cfg, init, loss, prefill, init_state, decode)

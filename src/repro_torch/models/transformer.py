@@ -1,4 +1,4 @@
-"""Decoder-only dense transformer LM: init, forward, prefill, decode.
+"""Decoder-only dense transformer LM: init, forward, loss, prefill, decode.
 
 Port of the dense path of ``repro.models.transformer`` (qwen3-4b,
 stablelm-1.6b, yi-34b, qwen1.5-0.5b and the VLM internvl2-2b with its
@@ -187,6 +187,18 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     x, _ = _run_layers(params, cfg, x, positions)
     x = norm_apply(cfg.norm_type, x, params, "norm_final")
     return emb.logits_head(params, x)
+
+
+def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``{"tokens", "labels"}``
+    and the VLM's ``"frontend_embeds"``, on the params' device), the
+    frontend positions cut from the logits.  The reference adds ``0.01 *``
+    the MoE auxiliary loss, which is 0 for a dense model."""
+    frontend = batch.get("frontend_embeds")
+    logits = forward(params, cfg, batch["tokens"], frontend_embeds=frontend)
+    if frontend is not None:
+        logits = logits[:, frontend.shape[1]:]
+    return emb.cross_entropy(logits, batch["labels"])
 
 
 # --------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from .. import tree_util as tu
 from ..core import fake_quant as fq
 from ..layers import embedding as emb
 from ..models import lstm_lm
@@ -97,11 +98,7 @@ def card_against_cpu(params_card, params_cpu, cfg, tokens: torch.Tensor
 
 def params_to(params, device):
     """A copy of a param tree on ``device``."""
-    if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return type(params)(params_to(v, device) for v in params)
-    return params.to(device)
+    return tu.tree_map(lambda t: t.to(device), params)
 
 
 def fake_quant_cases(gen: torch.Generator, device, n: int = 1000

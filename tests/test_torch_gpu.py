@@ -555,3 +555,57 @@ def test_fake_quant_card_matches_cpu(cuda):
 
     gen = torch.Generator(device=cuda).manual_seed(4)
     assert FC.fake_quant_card_against_cpu(gen, cuda) == 7 * 10**6
+
+
+@pytest.mark.parametrize("arch,qat", [("lstm-rnnt", False),
+                                      ("lstm-rnnt", True),
+                                      ("qwen1.5-0.5b", False)])
+def test_train_step_card_matches_cpu(cuda, arch, qat):
+    """One train step (smoke width) on the card and on the CPU from the
+    same params, state and batch, by ``train_checks``' rules."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.testing import train_checks as TC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True)
+    params = model_zoo.build(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), cuda)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                   global_batch=2)).batch_at(0)
+    before = serve.launch_counts()
+    TC.step_card_against_cpu(cfg, params, batch, OptConfig(lr=3e-3),
+                             qat=qat)
+    assert serve.launch_counts() == before  # no kernel in a train step
+
+
+def test_flash_kernel_refuses_grad(cuda):
+    from repro_torch.testing import train_checks as TC
+
+    assert "ROADMAP" in TC.flash_refuses_grad(cuda)
+
+
+def test_checkpoint_roundtrip_on_card(cuda, tmp_path):
+    """An async save of card tensors, which the caller then overwrites,
+    restores onto the card bit for bit, bf16 too."""
+    from repro_torch import tree_util as tu
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    tree = {"w": torch.randn((256, 64), generator=gen, device=cuda),
+            "e": [torch.randn((64, 8), generator=gen, device=cuda)
+                  .to(torch.bfloat16)],
+            "step": torch.tensor(3, dtype=torch.int32, device=cuda)}
+    want = tu.tree_map(torch.clone, tree)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, tree)
+    tree["w"].zero_()
+    mgr.wait()
+    like = tu.tree_map(torch.zeros_like, want)
+    restored, _ = mgr.restore(3, like)
+    for got, w in zip(tu.leaves(restored), tu.leaves(want), strict=True):
+        assert got.device == w.device and got.dtype == w.dtype
+        assert torch.equal(got, w)
