@@ -112,6 +112,22 @@
    ``srf`` at oversubscription 2.0, so streams are preempted through the
    state pool; lstm-rnnt under ``fifo``): every stream's tokens must equal
    the port's ``decode_single`` on the card;
+   then ``[fleet]``, the fleet router (``launch/fleet.py``) over 2 shards
+   that share the card, on the same two models: ``tests/test_fleet.py``'s
+   acceptance workload on lstm-rnnt (2 x 2 slots, ``srf`` at 2.0, a hard
+   kill of shard 0 at fleet step 5: at least one stream migrates with its
+   state and one replays its prefix); lstm-rnnt over 16 requests of
+   ``synthetic_trace(seed=11, arrival_span=8)`` (2 x 4 slots, chunk 4,
+   ``srf`` at 2.0, a hard kill of shard 0 at half the tokens and its
+   restart 8 fleet steps later; a second run of it under the profiler for
+   the device's busy share); gru-rnnt over the engine workload with a
+   0.5 s hang of shard 0 that its watchdog must rule hung and
+   ``on_hang="kill"`` drains gracefully.  Each run must serve every
+   request, launch the GEMM once per launch of the model's sequence kernel
+   and no other kernel, meet its spec's kill, restart and hang counts, and
+   give every stream the tokens of ``decode_single`` on the card; its
+   goodput (tokens a fleet step and a second, host clock) and fault-plane
+   counts are printed;
    then initialises full-width ``qwen3-4b`` (36 layers, d_model 2560, 32
    query over 8 KV heads of 128, vocab 151936) on the card from a seed and
    prefills 2 x 4096 tokens through ``make_serve_fns``: the flash kernel
@@ -141,11 +157,12 @@
 Every launch counter is set to 0 just before each served path (the two
 static serves, the two float serves and the PTQ serves, the train runs,
 the stepwise pass,
-the two engine runs, the transformer's prefill and its two static serves)
-and read just after it; a kernel of the
+the two engine runs, the three fleet runs, the transformer's prefill and
+its two static serves) and read just after it; a kernel of the
 path that did not launch fails the run.  The kernels' JSON line counts each
-kernel's launches over the engine runs and the stepwise pass (the GEMM's
-also by shape), and kernel 5's over the transformer's prefill.  Each phase prints its
+kernel's launches over the engine runs, the fleet runs and the stepwise
+pass (the GEMM's also by shape), and kernel 5's over the transformer's
+prefill.  Each phase prints its
 seconds.
 
 ``--gemm-times SRC TAG`` builds and times kernel 1 alone (step 11's GEMM
@@ -186,6 +203,20 @@ ENGINE = dict(n_requests=12, seed=11, prompt_lens=(8, 16, 32),
               gen_lens=(4, 8, 16), arrival_span=8, slots=4, chunk=4)
 ENGINE_RUNS = (("gru-rnnt", "srf", 2.0, 4),  # arch, policy, oversubscribe,
                ("lstm-rnnt", "fifo", 1.0, 0))  # speculate
+# the [fleet] phase: three fleet runs of 2 shards on the models built
+# above, both shards on the one card.  FLEET_ACCEPT is tests/test_fleet.py's
+# acceptance workload (prompts from default_rng(7)): 4 long requests at
+# step 0 and 2 short ones at step 2 on 2 x 2 slots under srf, so the hard
+# kill of shard 0 at fleet step 5 finds a pooled stream (migrates with its
+# state) and residents (replay their prefix)
+FLEET_ACCEPT = dict(lens=((3, 12),) * 4 + ((2, 3),) * 2,
+                    arrivals=(0, 0, 0, 0, 2, 2), slots=2, kill_step=5)
+FLEET_TRACE = dict(n_requests=16, seed=11, prompt_lens=(8, 16, 32),
+                   gen_lens=(8, 12, 16), arrival_span=8, slots=4, chunk=4)
+FLEET_KILL = dict(shard=0, at_frac=0.5, restart_after=8)
+# warmup takes engine steps 0-2 at chunk 4; the hang fires on shard 0's
+# fifth serving step
+FLEET_HANG = dict(shard=0, at_step=7, sleep_s=0.5)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 # the transformer path: qwen3-4b at full width, a long-prompt prefill
 # through make_serve_fns (flash attention in every layer) and the static
@@ -1437,6 +1468,148 @@ def engine_full_width(model, policy, oversubscribe, speculate):
                          "busy_share": share}}
 
 
+def fleet_requests(cfg):
+    """``FLEET_ACCEPT``'s requests for ``cfg``'s vocabulary."""
+    import numpy as np
+    from repro_torch.launch import engine as E
+
+    rng = np.random.default_rng(7)
+    return [E.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                 size=(p,)),
+                      max_new_tokens=g, arrival=float(a))
+            for i, ((p, g), a) in enumerate(zip(FLEET_ACCEPT["lens"],
+                                                FLEET_ACCEPT["arrivals"]))]
+
+
+def fleet_router(model, requests, faults, **router_kw):
+    """A warmed router of 2 shards on ``model`` with ``requests`` submitted
+    and a fresh ``FaultInjector(**faults)``."""
+    from repro_torch.launch import fleet as F
+    from repro_torch.launch import serve
+    from repro_torch.runtime.fault import StepWatchdog
+
+    params, qlayers, cfg = model
+    if router_kw.get("on_hang") == "kill":
+        # shard 1 is the survivor: its watchdog rules no step hung, so a
+        # slow host step there cannot take the whole fleet down
+        wds = iter([StepWatchdog(), StepWatchdog(timeout_factor=math.inf)])
+        router_kw["watchdog_factory"] = lambda: next(wds)
+    router = F.FleetRouter(params, qlayers, cfg, n_shards=2,
+                           injector=F.FaultInjector(**faults), **router_kw)
+    router.warmup()
+    router.submit_all(requests)
+    serve._sync(params["embedding"].device)
+    return router
+
+
+def fleet_run(what, model, requests, expect, faults, profile=False,
+              **router_kw):
+    """One fleet run of 2 shards on ``model``: warmup, then the run with
+    every launch counter set to 0 just before it; every stream held
+    against ``decode_single``; the fault plane's counts against
+    ``expect`` (an int is an exact count, ``(n,)`` a least one).  With
+    ``profile`` a second run of the same fleet goes under the profiler
+    for the device's busy share."""
+    from repro_torch.launch import engine as E
+    from repro_torch.launch import serve
+    from repro_torch.models import lstm_lm
+
+    params, qlayers, cfg = model
+    dev = params["embedding"].device
+    t0 = time.perf_counter()
+    router = fleet_router(model, requests, faults, **router_kw)
+    serve.reset_launch_counts()
+    results, stats = router.run()
+    serve._sync(dev)
+    counts = serve.launch_counts()
+    by_shape = gemm_shape_counts()
+    scan = SCAN_OF[lstm_lm.rnn_cell(cfg)]
+    want = {name: 0 for name in serve.KERNELS}
+    want.update({"int8_matmul": None, scan: None})
+    path_launches(what, counts, want)
+    if counts["int8_matmul"] != counts[scan]:
+        raise AssertionError(f"{what}: one GEMM per sequence-kernel launch "
+                             f"expected, got {counts}")
+    serve.print_fleet_stats(stats, router.slots_per_shard)
+    if stats.completed != len(requests) or stats.lost or stats.rejected:
+        raise AssertionError(f"{what}: not every request was served")
+    for key, n in expect.items():
+        got = getattr(stats, key)
+        if (got < n[0]) if isinstance(n, tuple) else (got != n):
+            raise AssertionError(f"{what}: {key} = {got}, expected {n}")
+    t1 = time.perf_counter()
+    for r in requests:
+        single = E.decode_single(params, qlayers, cfg, r.prompt,
+                                 r.max_new_tokens)
+        if results[r.rid].tokens != single:
+            raise AssertionError(f"{what}: stream {r.rid} "
+                                 f"{results[r.rid].tokens} != decode_single "
+                                 f"{single}")
+    log(f"[{what}] all {len(requests)} streams equal decode_single on the "
+        f"card ({time.perf_counter() - t1:.1f}s); goodput "
+        f"{stats.goodput_tokens_per_step:.3f} tokens/fleet step, "
+        f"{stats.tokens_per_s:.1f} tokens/s (host clock), "
+        f"{stats.wall_s / max(stats.fleet_steps, 1) * 1e3:.2f} ms a fleet "
+        f"step; {time.perf_counter() - t0:.1f}s")
+    fault = ("kills", "restarts", "hang_events", "migrated_streams",
+             "replayed_streams", "rerouted_pending", "admit_retries")
+    busy = None
+    if profile:
+        again = fleet_router(model, requests, faults, **router_kw)
+        busy_ms, wall_s = device_busy_ms(lambda: again.run()[1].wall_s)
+        busy = {"device_busy_ms": busy_ms, "wall_s": wall_s,
+                "busy_share": busy_ms / 1e3 / wall_s if busy_ms else None}
+        log(f"[{what}] profiled run: device busy {busy_ms} ms of "
+            f"{wall_s * 1e3:.1f} ms wall (busy share {busy['busy_share']})")
+    return {"what": what, "arch": cfg.name,
+            "slots": router.slots_per_shard, "requests": len(requests),
+            "served": stats.completed, "fleet_steps": stats.fleet_steps,
+            "generated_tokens": stats.generated_tokens,
+            "goodput_tokens_per_step": stats.goodput_tokens_per_step,
+            "tokens_per_s": stats.tokens_per_s, "wall_s": stats.wall_s,
+            **{k: getattr(stats, k) for k in fault},
+            "shards": [{"alive": sh.alive, "steps": sh.steps,
+                        "generated_tokens": sh.generated_tokens,
+                        "adopted": sh.adopted, "hung": sh.hung}
+                       for sh in stats.shards],
+            "launches": counts, "gemm_launches_by_shape": by_shape,
+            "profiled": busy, "seconds": time.perf_counter() - t0}
+
+
+def fleet_full_width(models):
+    """[fleet]: the fleet router over 2 co-located shards on the full-width
+    models, through a hard kill, a kill with a restart and a hang."""
+    from repro_torch.launch import engine as E
+
+    lstm, gru = models["lstm-rnnt"], models["gru-rnnt"]
+    trace = {k: FLEET_TRACE[k] for k in ("seed", "prompt_lens", "gen_lens",
+                                         "arrival_span")}
+    kw = dict(slots_per_shard=FLEET_TRACE["slots"],
+              chunk=FLEET_TRACE["chunk"])
+    runs = [
+        fleet_run("fleet accept lstm-rnnt", lstm, fleet_requests(lstm[2]),
+                  dict(kills=1, restarts=0, migrated_streams=(1,),
+                       replayed_streams=(1,)),
+                  dict(kills=[dict(shard=0,
+                                   at_step=FLEET_ACCEPT["kill_step"])]),
+                  slots_per_shard=FLEET_ACCEPT["slots"], policy="srf",
+                  oversubscribe=2.0),
+        fleet_run("fleet kill+restart lstm-rnnt", lstm, E.synthetic_trace(
+                      FLEET_TRACE["n_requests"], lstm[2].vocab_size,
+                      **trace),
+                  dict(kills=1, restarts=1), dict(kills=[FLEET_KILL]),
+                  profile=True, policy="srf", oversubscribe=2.0, **kw),
+        fleet_run("fleet hang gru-rnnt", gru, engine_workload(gru[2]),
+                  dict(kills=1, restarts=0, hang_events=(1,),
+                       replayed_streams=0, migrated_streams=(1,)),
+                  dict(hangs=[FLEET_HANG]), on_hang="kill", **kw),
+    ]
+    if runs[2]["shards"][0]["alive"] or runs[2]["shards"][0]["hung"] < 1:
+        raise AssertionError("fleet hang: shard 0 was not ruled hung and "
+                             "drained")
+    return runs
+
+
 def device_busy_ms(run, kernels=None):
     """``(device ms, wall s)`` of one run under ``torch.profiler``: the sum
     of the kernels' device time (launches do not overlap on one stream),
@@ -2189,6 +2362,8 @@ def main() -> int:
         engines.append(engine_full_width(models[arch], policy, ratio,
                                          speculate))
         phases.done(f"engine {arch}")
+    fleet = fleet_full_width(models)
+    phases.done("fleet")
     prefill, transformer = prefill_full_width(dev)
     phases.done(f"prefill {TRANSFORMER}")
     transformer_serve = serve_transformer_full_width(dev, transformer)
@@ -2200,21 +2375,22 @@ def main() -> int:
     barrier = time_barrier(dev)
     phases.done("timing")
 
-    # the main paths of the slices so far: the engine on both models and
-    # the stepwise pass of lstm-rnnt; each kernel's launches over them
-    launches = {name: sum(e["launches"][name] for e in engines)
+    # the main paths of the slices so far: the engine and the fleet on both
+    # models and the stepwise pass of lstm-rnnt; each kernel's launches
+    # over them
+    launches = {name: sum(e["launches"][name] for e in engines + fleet)
                 + stepwise["launches"][name] for name in stepwise["launches"]}
     # kernel 5's main path: the long-prompt prefill of the transformer
     launches["flash_attention"] = prefill["launches"]["flash_attention"]
     gemm_by_shape = {}
-    for path in engines + [stepwise]:
+    for path in engines + fleet + [stepwise]:
         for shape, n in path["gemm_launches_by_shape"].items():
             gemm_by_shape[shape] = gemm_by_shape.get(shape, 0) + n
     if sum(gemm_by_shape.values()) != launches["int8_matmul"]:
         raise AssertionError(f"int8_matmul launches by shape {gemm_by_shape}"
                              f" do not add up to {launches['int8_matmul']}")
-    log(f"[launches] int8_matmul by shape over the engines and the "
-        f"stepwise pass: {gemm_by_shape}")
+    log(f"[launches] int8_matmul by shape over the engines, the fleet "
+        f"runs and the stepwise pass: {gemm_by_shape}")
     for name, r in (("int_layernorm", ln[0]), ("quant_lstm_cell", cell[0])):
         r["launches_x_gap_ms"] = launches[name] * (r["ms"] - r["bound_ms"])
         log(f"[launches] {name}: {launches[name]} x ({r['ms']:.4f} - "
@@ -2249,6 +2425,7 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"gpu": smi, "build_s": secs, "kernels": kernels,
                    "serve": [lstm_serve, gru_serve], "engine": engines,
+                   "fleet": fleet,
                    "float": float_serves, "train": train,
                    "stepwise": stepwise, "prefill": prefill,
                    "transformer_serve": transformer_serve,

@@ -16,7 +16,8 @@ package:
   list, each spec given as ``dataclasses.asdict(spec)`` -> the port's
   ``(arrays, QLSTMSpec | QGRUSpec)`` list.
 
-With these, both packages compute on the same weights.
+With these, both packages compute on the same weights.  ``model_to``
+places the port's integer LM on a device (the fleet's shards).
 """
 from __future__ import annotations
 
@@ -87,3 +88,19 @@ def qlayers_from_numpy(qlayers, device="cpu"
     """``[(numpy arrays tree, asdict(spec))]`` -> the port's quantized layers."""
     return [(_tree(arrays, device), spec_from_dict(spec))
             for arrays, spec in qlayers]
+
+
+def model_to(params, qlayers, device):
+    """``(params, qlayers)`` of the integer LM on ``device``.
+
+    A tensor already there is returned as it is (``Tensor.to`` copies
+    nothing then), so engines placed on the model's own device share one
+    set of weights, as the reference's co-located fleet engines share
+    arrays."""
+    device = torch.device(device)
+
+    def put(t):
+        return t.to(device) if isinstance(t, torch.Tensor) else t
+
+    return (tu.tree_map(put, params),
+            [(tu.tree_map(put, arrays), spec) for arrays, spec in qlayers])

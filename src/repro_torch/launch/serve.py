@@ -8,6 +8,9 @@ baseline, and the dense transformer family.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gru-rnnt \
         --quant int8-gru --engine --slots 4 --requests 12 --chunk 4 \
         --speculate 4 --policy srf --oversubscribe 2.0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch lstm-rnnt \
+        --quant int8-lstm --engine --shards 2 --slots 4 --requests 16 \
+        --fault-spec '{"kills": [{"shard": 0, "at_frac": 0.5, "restart_after": 8}]}'
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         [--quant int8] --batch 4 --prompt-len 32 --gen 16 --max-len 256
 
@@ -16,8 +19,14 @@ static batch (ONE integer prefill over the prompt and a greedy decode
 loop) or, with ``--engine``, a queue of requests served by the
 continuous-batching engine (``launch/engine.py``: chunked prefill
 ``--chunk``, speculative decoding ``--speculate``, scheduling ``--policy``
-with preemption through the state pool under ``--oversubscribe``).  The
-workload is synthetic (``--requests N``) or a JSON trace (``--trace``).
+with preemption through the state pool under ``--oversubscribe``), or,
+with ``--shards N``, by the fleet router over N such engines
+(``launch/fleet.py``: least-loaded admission, and a seeded fault plane,
+``--fault-spec``, whose shard kills, hangs and admission failures every
+stream survives bit for bit).  The workload is synthetic (``--requests
+N``; spread over ``N // 2`` fleet steps of arrivals under ``--shards``) or
+a JSON trace (``--trace``).  A shard runs on a CUDA device of its own when
+there are at least N of them; otherwise every shard shares ``--device``.
 Every layer of every step launches the int8 GEMM kernel once (hoisted input
 stage) and the cell's sequence kernel once (recurrent stage).
 
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from typing import Any, Dict, List, Optional
 
@@ -48,8 +58,9 @@ from ..configs.registry import get_config
 from ..kernels import (flash_attention, int8_matmul, int_layernorm,
                        quant_gru_scan, quant_lstm_cell, quant_lstm_scan)
 from ..models import lstm_lm, model_zoo, quant_transformer
-from ..runtime import train_loop
+from ..runtime import sharding, train_loop
 from . import engine as E
+from . import fleet as F
 
 KERNELS = {"int8_matmul": int8_matmul, "quant_lstm_scan": quant_lstm_scan,
            "quant_gru_scan": quant_gru_scan, "int_layernorm": int_layernorm,
@@ -214,16 +225,16 @@ def random_prompt(cfg, batch: int, prompt_len: int, device, seed: int = 1):
                          generator=gen, device=device)
 
 
-def engine_requests(args, cfg) -> List[E.Request]:
+def engine_requests(args, cfg, arrival_span: int = 0) -> List[E.Request]:
     """The engine workload of the CLI: a JSON trace or the synthetic one
-    (seed 1, prompt lengths (P/2, P), budgets (G/2, G)), as in the
-    reference launcher."""
+    (seed 1, prompt lengths (P/2, P), budgets (G/2, G), arrivals over
+    ``arrival_span`` steps), as in the reference launcher."""
     if args.trace:
         return E.load_trace(args.trace, cfg.vocab_size, seed=1)
     return E.synthetic_trace(
         args.requests, cfg.vocab_size, seed=1,
         prompt_lens=(args.prompt_len // 2 or 1, args.prompt_len),
-        gen_lens=(args.gen // 2 or 1, args.gen))
+        gen_lens=(args.gen // 2 or 1, args.gen), arrival_span=arrival_span)
 
 
 def print_engine_stats(stats: E.EngineStats, n_results: int,
@@ -273,6 +284,82 @@ def _serve_engine(args, cfg, params, qlayers, device) -> None:
     print("sample:", results[requests[0].rid].tokens)
 
 
+def _load_fault_spec(raw: Optional[str]) -> Optional[F.FaultInjector]:
+    """``--fault-spec`` value -> FaultInjector (inline JSON or @file)."""
+    if raw is None:
+        return None
+    if raw.startswith("@"):
+        with open(raw[1:]) as f:
+            spec = json.load(f)
+    else:
+        spec = json.loads(raw)
+    if not isinstance(spec, dict):
+        raise SystemExit(f"--fault-spec: expected a JSON object, "
+                         f"got {type(spec).__name__}")
+    return F.FaultInjector.from_spec(spec)
+
+
+def print_fleet_stats(stats: F.FleetStats, n_slots: int) -> None:
+    """The reference launcher's fleet lines: served, goodput, the fault
+    plane's counts and one line a shard."""
+    print(f"served {stats.completed}/{stats.submitted} requests in "
+          f"{stats.wall_s:.2f}s ({stats.fleet_steps} fleet steps); "
+          f"{stats.rejected} rejected, {stats.lost} lost")
+    print(f"goodput: {stats.goodput_tokens_per_step:.2f} tokens/step "
+          f"({stats.tokens_per_s:.1f} tokens/s)")
+    print(f"fault plane: {stats.kills} kills, {stats.restarts} restarts, "
+          f"{stats.hang_events} hung steps, {stats.migrated_streams} "
+          f"migrated, {stats.replayed_streams} replayed, "
+          f"{stats.rerouted_pending} rerouted, {stats.admit_retries} "
+          f"admission retries")
+    for i, s in enumerate(stats.shards):
+        print(f"  shard {i}: {'alive' if s.alive else 'dead '} "
+              f"steps={s.steps} occupancy={s.occupancy(n_slots):.2f} "
+              f"tokens={s.generated_tokens} adopted={s.adopted} "
+              f"stragglers={s.stragglers} hung={s.hung} "
+              f"kills={s.kills} restarts={s.restarts}")
+
+
+def _serve_fleet(args, cfg, params, qlayers, device) -> None:
+    """Sharded serving of the integer recurrent LM through the fleet
+    router (admission routing + fault-plane recovery)."""
+    requests = engine_requests(args, cfg,
+                               arrival_span=max(args.requests // 2, 1))
+    if not requests:
+        raise SystemExit("fleet: empty workload (use --requests N >= 1 or "
+                         "a non-empty --trace)")
+    groups = (sharding.fleet_device_groups(args.shards)
+              if device.type == "cuda" else None)
+    devices = [g[0] for g in groups] if groups else None
+    router = F.FleetRouter(
+        params, qlayers, cfg, n_shards=args.shards,
+        slots_per_shard=args.slots, chunk=args.chunk,
+        speculate=args.speculate, policy=args.policy,
+        oversubscribe=args.oversubscribe,
+        injector=_load_fault_spec(args.fault_spec), devices=devices)
+    router.warmup()
+    router.submit_all(requests)
+    counts0 = launch_counts()
+    results, stats = router.run()
+    print(f"arch={cfg.name} quant={args.quant} fleet shards={args.shards} "
+          f"slots/shard={args.slots} chunk={args.chunk} "
+          f"policy={args.policy} oversubscribe={args.oversubscribe} "
+          f"device={device} devices={len(groups or ())}/{args.shards}")
+    print_fleet_stats(stats, args.slots)
+    done = [r for r in results.values() if r.tokens and not r.truncated]
+    ttfts = sorted(r.ttft_steps for r in done if r.ttft_steps is not None)
+    if ttfts:
+        print(f"TTFT p50/p99: {ttfts[len(ttfts) // 2]} / "
+              f"{ttfts[min(len(ttfts) - 1, int(len(ttfts) * 0.99))]} "
+              f"fleet steps")
+    print("kernel launches:", " ".join(
+        f"{k}={v - counts0[k]}" for k, v in launch_counts().items()))
+    # the first request's tokens, as the engine path prints
+    first = [r for r in done if r.rid == requests[0].rid]
+    if first or done:
+        print("sample:", (first or done)[0].tokens)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
@@ -313,6 +400,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="admission headroom for --engine as a multiple of "
                          "--slots (streams beyond the slots are parked in "
                          "the state pool by preempting policies)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="serve through the fleet router over N per-shard "
+                         "engines (requires --engine; launch/fleet.py). "
+                         "Each shard gets --slots decode rows and a CUDA "
+                         "device of its own when there are enough")
+    ap.add_argument("--fault-spec", default=None,
+                    help="fault-injection spec for --shards: inline JSON or "
+                         "@file, schema per fleet.FaultInjector.from_spec "
+                         "(kills / hangs / admission failures, all seeded "
+                         "and deterministic)")
     args = ap.parse_args(argv)
     if args.prompt_len < 1:
         ap.error("--prompt-len must be >= 1")
@@ -328,6 +425,14 @@ def main(argv: Optional[List[str]] = None) -> None:
                  "--engine")
     if args.engine and args.quant not in RECURRENT_QUANT:
         ap.error("--engine requires --quant int8-lstm or int8-gru")
+    if args.shards is not None and not args.engine:
+        ap.error("--shards requires --engine (the fleet router drives "
+                 "continuous-batching engines)")
+    if args.shards is not None and args.shards < 1:
+        ap.error("--shards must be >= 1")
+    if args.fault_spec is not None and args.shards is None:
+        ap.error("--fault-spec requires --shards (faults are injected at "
+                 "the fleet router)")
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.quant == "int8" and cfg.family == "lstm":
         raise SystemExit(
@@ -354,6 +459,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     params, qlayers = build_model(cfg, args.batch, args.prompt_len, device)
     print(f"calibrated+quantized {len(qlayers)} {want.upper()} layers in "
           f"{time.perf_counter() - t0:.1f}s (device={device})")
+    if args.shards is not None:
+        _serve_fleet(args, cfg, params, qlayers, device)
+        return
     if args.engine:
         _serve_engine(args, cfg, params, qlayers, device)
         return

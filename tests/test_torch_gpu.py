@@ -214,6 +214,69 @@ def test_engine_smoke_gru_launches_and_matches_decode_single(cuda):
             params, qlayers, cfg, r.prompt, r.max_new_tokens)
 
 
+def _fleet_on_card(cuda, spec, arrivals, kill, **router_kw):
+    """A 2-shard fleet run of smoke ``lstm-rnnt`` on the card (both shards
+    on it): ``(requests, results, stats, launches, decode_single by
+    rid)``."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import engine as E
+    from repro_torch.launch import fleet as F
+    from repro_torch.launch import serve
+
+    cfg = get_config("lstm-rnnt", smoke=True)
+    params, qlayers = serve.build_model(cfg, 2, 8, cuda)
+    rng = np.random.default_rng(7)
+    requests = [E.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                     size=(p,)),
+                          max_new_tokens=g, arrival=float(a))
+                for i, ((p, g), a) in enumerate(zip(spec, arrivals))]
+    router = F.FleetRouter(params, qlayers, cfg, n_shards=2,
+                           slots_per_shard=2,
+                           injector=F.FaultInjector(kills=[kill]),
+                           **router_kw)
+    router.warmup()
+    router.submit_all(requests)
+    serve.reset_launch_counts()
+    results, stats = router.run()
+    launches = serve.launch_counts()
+    singles = {r.rid: E.decode_single(params, qlayers, cfg, r.prompt,
+                                      r.max_new_tokens) for r in requests}
+    return requests, results, stats, launches, singles
+
+
+def _assert_fleet_served(requests, results, launches, singles):
+    assert launches["quant_lstm_scan"] > 0
+    assert launches["int8_matmul"] == launches["quant_lstm_scan"]
+    assert all(v == 0 for k, v in launches.items()
+               if k not in ("int8_matmul", "quant_lstm_scan"))
+    for r in requests:
+        assert not results[r.rid].truncated
+        assert results[r.rid].tokens == singles[r.rid], r.rid
+
+
+def test_fleet_hard_kill_on_card_matches_decode_single(cuda):
+    """The acceptance case of ``tests/test_fleet.py`` on the card: a hard
+    kill of shard 0 at fleet step 5 migrates a pooled stream and replays
+    the residents, and every stream equals ``decode_single``."""
+    requests, results, stats, launches, singles = _fleet_on_card(
+        cuda, [(3, 12)] * 4 + [(2, 3)] * 2, [0, 0, 0, 0, 2, 2],
+        dict(shard=0, at_step=5), oversubscribe=2.0, policy="srf")
+    assert stats.kills == 1 and stats.completed == len(requests)
+    assert stats.migrated_streams >= 1 and stats.replayed_streams >= 1
+    _assert_fleet_served(requests, results, launches, singles)
+
+
+def test_fleet_graceful_drain_on_card_matches_decode_single(cuda):
+    requests, results, stats, launches, singles = _fleet_on_card(
+        cuda, [(2, 9), (3, 7), (5, 6), (2, 8)], [0, 0, 0, 0],
+        dict(shard=0, at_step=5, graceful=True))
+    assert stats.kills == 1 and stats.replayed_streams == 0
+    assert stats.migrated_streams >= 1
+    _assert_fleet_served(requests, results, launches, singles)
+
+
 @functools.lru_cache(maxsize=None)
 def _step_cases():
     from repro_torch.testing import kernel_cases
