@@ -5,6 +5,7 @@
     python3 chip_smoke.py --gemm-times SRC TAG  # kernel 1 alone, see below
     python3 chip_smoke.py --cell-times SRC TAG  # kernels 2 and 3 alone
     python3 chip_smoke.py --serve-times SRC TAG  # the served paths' rates
+    python3 chip_smoke.py --families  # kernel 5 and [families] alone
 
 1. builds the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    each, in parallel, beside the header check of step 2) and prints the
@@ -53,11 +54,13 @@
    LN+projection+peephole layer, both GRU variants and the full-width GRU
    layer; each call's launches must be exactly those of its steps;
    then holds the flash-attention kernel against its plain version at its
-   own tiles (128 x 128 in the tensor-core form, 64 x 64 in the FMA
-   form): (B, H, KVH, S, D) in {(2, 4, 4, 256, 64), (1, 32, 8,
-   1100, 128), (2, 32, 8, 4096, 128)} x float32/bf16 x (its own scale, or q
-   pre-scaled in its dtype as the model's layer does) x (causal,
-   non-causal, causal with window 64), and per shape a bf16 case with
+   own tiles (128 x 128 in the tensor-core form, 128 x 64 there at
+   head_dim 256, 64 x 64 in the FMA form): (B, H, KVH, S, D) in {(2, 4,
+   4, 256, 64), (1, 32, 8, 1100, 128), (2, 32, 8, 4096, 128), (2, 4, 2,
+   300, 256), (1, 16, 1, 1100, 256)} x float32/bf16 x (its own scale, or
+   q pre-scaled in its dtype as the model's layer does) x (causal,
+   non-causal, causal with window 64, and at head_dim 256 a window of 300
+   whose edge falls inside a key tile), and per shape a bf16 case with
    unaligned rows (the kernel's FMA form; aligned bf16 runs on the tensor
    cores); float32 within 2e-5 + 2e-5 |ref|, bf16 within 2 ulps of the
    row's largest |ref|;
@@ -142,12 +145,33 @@
    time under the profiler; then serves it statically (B 4, prompt 32, 16
    greedy tokens, cache 256) in bf16 and with int8 weights and KV cache,
    where no kernel may launch (decode never reaches flash attention);
+   then ``[families]``: full-width ``recurrentgemma-9b`` (38 layers, 26
+   RG-LRU and 12 window-2048 attention layers of 16 query heads over one
+   KV head of 256, vocab 256000), ``falcon-mamba-7b`` (64 Mamba-1 layers,
+   d_inner 8192) and ``whisper-tiny`` (4 + 4 layers over 1500 frames of
+   the frontend stub), each initialised on the card from a seed and freed
+   before the next: recurrentgemma's prefill of 1 x 4096 tokens through
+   ``make_serve_fns`` launches kernel 5 exactly 12 times in its
+   tensor-core form at head_dim 256 and no other kernel, each launch held
+   against the plain version on that layer's inputs (2 bf16 ulps), the
+   last-token logits against plain-version runs by the F7 rule, prompt
+   tokens/s over 3 prefills and kernel 5's share of the device time;
+   mamba's prefill of 1 x 4096 (3 repeats) and whisper's of 4 x 64 text
+   tokens launch no kernel; whisper's of 1 x 4096 text tokens launches
+   kernel 5 exactly 4 times (head_dim 64, tensor cores), held the same
+   way; each model's static serves in bf16 and int8 (no kernel); a cut
+   of each (3, 2 and 2 + 2 layers at full width) on the card against the
+   CPU on the same weights, the last-token logits within 1 % of the row's
+   largest |logit|, or 1.5 x the CPU's own spread between two summation
+   orders of its products where that is wider (F7's rule);
 11. times each kernel with CUDA events (L2 flushed, the card held busy while
    the host enqueues the call, so the span is device time) beside its plain
    version, its bound and, for the GEMM, torch._int_mm (at M <= 16, where
    it refuses, on x zero-padded to 32 rows under its own key) at every
-   shape the main paths launch (for flash attention, at the prefill's layer
-   shape, scaled_dot_product_attention; for kernels 2 and 3, the step
+   shape the main paths launch (for flash attention, at the qwen3-4b and
+   the recurrentgemma-9b prefill layers' shapes, the latter's bound
+   counting only the keys inside the window,
+   scaled_dot_product_attention; for kernels 2 and 3, the step
    entries and the TPU-contract entries at B 4, H 2048, beside the
    method's launch floor, and launches x (ms - bound) over the stepwise
    pass); and the sequence kernels' grid barrier alone;
@@ -158,11 +182,12 @@ Every launch counter is set to 0 just before each served path (the two
 static serves, the two float serves and the PTQ serves, the train runs,
 the stepwise pass,
 the two engine runs, the three fleet runs, the transformer's prefill and
-its two static serves) and read just after it; a kernel of the
-path that did not launch fails the run.  The kernels' JSON line counts each
-kernel's launches over the engine runs, the fleet runs and the stepwise
-pass (the GEMM's also by shape), and kernel 5's over the transformer's
-prefill.  Each phase prints its
+its two static serves, each prefill and static serve of ``[families]``)
+and read just after it; a kernel of the path that did not launch fails
+the run.  The kernels' JSON line counts each kernel's launches over the
+engine runs, the fleet runs and the stepwise pass (the GEMM's also by
+shape), and kernel 5's over the transformer's, recurrentgemma's and
+whisper's long prefills (by path too).  Each phase prints its
 seconds.
 
 ``--gemm-times SRC TAG`` builds and times kernel 1 alone (step 11's GEMM
@@ -173,6 +198,9 @@ TAG`` does the same for kernels 2 and 3 (step 11's rows, the step entries
 where the revision has them), and ``--serve-times SRC TAG`` for the
 host-clock rates of the static serves, the stepwise pass and the engine
 runs of steps 8-10, with the tokens each served (no checks).
+``--families`` builds kernel 5 alone and runs its checks (step 7's), the
+``[families]`` phase and its timings (step 11's), no other phase; results
+in ``chiprun_out/families.json``.
 
 Any mismatch, build failure or launch error raises, and the script exits
 non-zero without the last line.  Without a CUDA device it fails at once.
@@ -244,6 +272,21 @@ TRAIN_PROF_T = 16
 TRAIN_QAT_STEPS, TRAIN_GRU_STEPS = 4, 2
 TRAIN_CPU = dict(n_layers=2, B=2, T=16)
 TRAIN_DENSE, TRAIN_DENSE_S = "qwen1.5-0.5b", 64
+# the [families] phase: the three other model families that fit one card,
+# at full width, one resident at a time: a long prefill through
+# make_serve_fns (recurrentgemma's 12 window-2048 attention layers run
+# kernel 5 at head_dim 256; whisper's decoder runs it past 2048 text
+# tokens), the static serves of SERVE_B x SERVE_PROMPT, and a cut of each
+# on the card against the CPU
+FAMILIES = ("recurrentgemma-9b", "falcon-mamba-7b", "whisper-tiny")
+FAMILY_PREFILL_S, FAMILY_REPEATS = 4096, 3
+WHISPER_PREFILLS = ((4, 64), (1, 4096))  # (B, text tokens) over the frames
+FAMILY_CUTS = {"recurrentgemma-9b": dict(n_layers=3),  # rec, rec, attn
+               "falcon-mamba-7b": dict(n_layers=2),
+               "whisper-tiny": dict(n_layers=2, enc_layers=2)}
+FAMILY_CPU_B, FAMILY_CPU_S = 2, 8
+# kernel 5 at a recurrentgemma prefill layer: MQA, causal, window 2048
+FLASH_TIMED_D256 = dict(B=1, H=16, KVH=1, S=4096, D=256, window=2048)
 
 
 def _gemm_timed():
@@ -1876,9 +1919,11 @@ def time_cell_kernels(dev, flush):
 
 def check_flash(dev):
     """Kernel 5 against its plain version at the kernel's own tiles: every
-    shape x dtype x scaling x mask of ``attention_checks.flash_cases``
-    (float32: |d| <= 2e-5 + 2e-5 |ref|; bf16: 2 ulps of the row's largest
-    |ref|).  Returns the largest |difference|."""
+    shape x dtype x scaling x mask of ``attention_checks.flash_cases``, the
+    head_dim-256 shapes with their masks too (both forms: float32 and
+    unaligned rows take the FMA form) (float32: |d| <= 2e-5 + 2e-5 |ref|;
+    bf16: 2 ulps of the row's largest |ref|).  Returns the largest
+    |difference|."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.testing import attention_checks as AC
@@ -1886,7 +1931,9 @@ def check_flash(dev):
     gen = torch.Generator(device=dev).manual_seed(21)
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
-    for label, kw in AC.flash_cases(gen):
+    cases = [AC.flash_cases(gen),
+             AC.flash_cases(gen, AC.FLASH_SHAPES_D256, AC.FLASH_MASKS_D256)]
+    for label, kw in (case for group in cases for case in group):
         got = FA.flash_attention(**kw)
         want = FA.flash_attention_plain(**kw, **FA.kernel_tiles(
             kw["q"], kw["k"], kw["v"]))
@@ -1897,21 +1944,26 @@ def check_flash(dev):
     torch.cuda.synchronize()
     log(f"[check] flash_attention: {n} cases ({len(AC.FLASH_SHAPES)} shapes "
         "x float32/bf16 x own scale/pre-scaled q x causal/non-causal/"
-        f"window 64) within tolerance of the plain version; max |d| "
-        f"float32 {err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}")
+        f"window 64, and {len(AC.FLASH_SHAPES_D256)} head_dim-256 shapes "
+        "with a window of 300 besides) within tolerance of the plain "
+        f"version; max |d| float32 {err[torch.float32]:.3g}, bf16 "
+        f"{err[torch.bfloat16]:.3g}")
     return max(err.values())
 
 
-def kernel_device_ms(run, names):
+def kernel_device_ms(run, names, host_ops=True):
     """``(kernel ms, all device ms)`` of one run under ``torch.profiler``:
     the device time of the kernels whose name holds one of ``names``,
     beside the device time of every kernel.  ``(None, None)`` where the
-    profiler records no device time."""
+    profiler records no device time.  ``host_ops=False`` traces the device
+    alone: a run of ~10**5 eager ops takes minutes to trace on the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
@@ -2035,10 +2087,11 @@ def prefill_full_width(dev, repeats=3):
 
 
 def serve_transformer_full_width(dev, model):
-    """The static serve of full-width ``qwen3-4b`` (B 4, prompt 32, 16
-    greedy tokens, cache 256), bf16 and with ``--quant int8`` (int8
-    weights and KV cache): no kernel launches (decode never reaches flash
-    attention); tokens in the vocabulary, logits finite."""
+    """The static serve of a full-width bundle (``qwen3-4b``, and the
+    ``[families]``' models; B 4, prompt 32, 16 greedy tokens, cache 256),
+    bf16 and with ``--quant int8`` (int8 weights, and the transformer's
+    KV cache): no kernel launches (decode never reaches flash attention);
+    tokens in the vocabulary, logits finite."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import quant_transformer as QT
@@ -2080,56 +2133,344 @@ def serve_transformer_full_width(dev, model):
     return out
 
 
-def time_flash(dev):
-    """Device ms of kernel 5 at a ``qwen3-4b`` prefill layer's shape
-    (causal, bf16), in its tensor-core form (the model's path) and its FMA
-    form, beside its plain version, its bound and
-    ``scaled_dot_product_attention`` (the library yardstick, never used by
-    the port)."""
+def flash_bound(B, H, KVH, S, D, window=0):
+    """``(bound ms, bound_by, bytes ms)`` of a causal bf16 prefill layer:
+    the operations over the bf16 peak, counting only the (query, key)
+    pairs inside the causal window (2 D for q . k, 2 D for p . v), or q,
+    k, v and o read or written once over the memory rate."""
+    pairs = sum(min(i + 1, window) if window > 0 else i + 1
+                for i in range(S))
+    flops = 4 * B * H * D * pairs
+    n_bytes = 2 * (2 * B * S * H * D + 2 * B * S * KVH * D)  # q, o, k, v
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return ((t_ops, "operations", t_bytes) if t_ops >= t_bytes
+            else (t_bytes, "bytes", t_bytes))
+
+
+def time_flash_at(dev, shape, flush, iters):
+    """Device ms of kernel 5 at a causal bf16 prefill layer's ``shape``
+    (``B H KVH S D`` and an optional ``window``) in its tensor-core form
+    (the model's path) and its FMA form (rows unaligned, so it takes
+    them), beside its plain version, its bound and
+    ``scaled_dot_product_attention`` on the same inputs (the library
+    yardstick, never used by the port; with a boolean band mask where the
+    layer has a window)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.testing import attention_checks as AC
 
-    Bq, H, KVH, S, D = (FLASH_TIMED[k] for k in ("B", "H", "KVH", "S", "D"))
-    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+    Bq, H, KVH, S, D = (shape[k] for k in ("B", "H", "KVH", "S", "D"))
+    window = shape.get("window", 0)
     gen = torch.Generator(device=dev).manual_seed(7)
     q = torch.randn((Bq, S, H, D), generator=gen, device=dev).bfloat16()
     k = torch.randn((Bq, S, KVH, D), generator=gen, device=dev).bfloat16()
     v = torch.randn((Bq, S, KVH, D), generator=gen, device=dev).bfloat16()
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    row = dict(FLASH_TIMED, causal=True, dtype="bfloat16",
-               form="tensor cores")
-    row["ms"], row["host_ms"] = cold_ms(lambda: FA.flash_attention(q, k, v),
-                                        10, flush)
-    # the FMA form on the same values (rows unaligned, so it takes them)
+    row = dict(shape, causal=True, dtype="bfloat16", form="tensor cores",
+               tiles=FA.kernel_tiles(q, k, v))
+    row["ms"], row["host_ms"] = cold_ms(
+        lambda: FA.flash_attention(q, k, v, window=window), iters, flush)
     uq, uk, uv = (AC.unaligned(t) for t in (q, k, v))
-    fma = dict(row, form="float32 FMA (unaligned rows)")
+    fma = dict(row, form="float32 FMA (unaligned rows)",
+               tiles=FA.kernel_tiles(uq, uk, uv))
     fma["ms"], fma["host_ms"] = cold_ms(
-        lambda: FA.flash_attention(uq, uk, uv), 5, flush)
-    row["plain_ms"], _ = cold_ms(lambda: FA.flash_attention_plain(q, k, v),
-                                 1, flush)
-    row["library_ms"], _ = cold_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 10, flush)
-    flops = 2 * Bq * H * S * S * D  # the causal half of QK^T and of PV
-    n_bytes = 2 * (2 * Bq * S * H * D + 2 * Bq * S * KVH * D)  # q, o, k, v
-    t_ops = flops / BF16_FLOPS * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    row["bound_ms"], row["bound_by"] = ((t_ops, "operations")
-                                        if t_ops >= t_bytes
-                                        else (t_bytes, "bytes"))
-    row["bytes_ms"] = t_bytes
+        lambda: FA.flash_attention(uq, uk, uv, window=window),
+        max(iters // 2, 1), flush)
+    row["plain_ms"], _ = cold_ms(
+        lambda: FA.flash_attention_plain(q, k, v, window=window), 1, flush)
+    if window:
+        pos = torch.arange(S, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (
+            pos[None, :] > pos[:, None] - window)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
+            qt, kt, vt, attn_mask=band, enable_gqa=True)
+    else:
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731,E501
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    row["library_ms"], _ = cold_ms(library, iters, flush)
+    row["bound_ms"], row["bound_by"], row["bytes_ms"] = flash_bound(
+        Bq, H, KVH, S, D, window)
     for key in ("plain_ms", "library_ms", "bound_ms", "bound_by",
                 "bytes_ms"):
         fma[key] = row[key]
     log(f"[time] flash_attention B={Bq} H={H} KVH={KVH} S={S} D={D} causal "
-        f"bf16: {row['ms']:.4f} ms on the tensor cores (host enqueue "
-        f"{row['host_ms']:.4f} ms), {fma['ms']:.4f} ms in the FMA form, "
-        f"plain {row['plain_ms']:.1f} ms, scaled_dot_product_attention "
-        f"{row['library_ms']:.4f} ms, bound {t_ops:.4f} ms (operations; "
-        f"bytes {t_bytes:.4f} ms)")
+        f"window={window} bf16: {row['ms']:.4f} ms on the tensor cores "
+        f"(tiles {row['tiles']}; host enqueue {row['host_ms']:.4f} ms), "
+        f"{fma['ms']:.4f} ms in the FMA form, plain {row['plain_ms']:.1f} "
+        f"ms, scaled_dot_product_attention {row['library_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
+        f"{row['bytes_ms']:.4f} ms)")
     torch.cuda.synchronize()
     return [row, fma]
+
+
+def time_flash(dev):
+    """Kernel 5 timed at a ``qwen3-4b`` prefill layer's shape (head_dim
+    128) and at a ``recurrentgemma-9b`` one's (head_dim 256, window 2048),
+    each in both forms (``time_flash_at``)."""
+    import torch
+
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+    return (time_flash_at(dev, FLASH_TIMED, flush, 10)
+            + time_flash_at(dev, FLASH_TIMED_D256, flush, 10))
+
+
+def family_prefill(dev, what, bundle, params, batch, n_flash, repeats):
+    """One full-width prefill of ``batch`` through ``make_serve_fns``:
+    kernel 5 launches exactly ``n_flash`` times (each launch held against
+    the plain version at the kernel's tiles on that layer's inputs, 2 bf16
+    ulps of the row's largest |value|, and in its tensor-core form) and no
+    other kernel launches; where it launches, the last-token logits are
+    held against runs with the plain version in every layer by F7 (1 %, or
+    1.5 x the plain version's spread between 512- and 256-row tiles);
+    prompt tokens/s over ``repeats`` prefills (each equal to the first),
+    peak device memory, and kernel 5's share of the device time
+    (profiled) where it launches."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+    from repro_torch.runtime import train_loop
+    from repro_torch.testing import attention_checks as AC
+
+    cfg = bundle.cfg
+    B, S = batch["tokens"].shape
+    prefill_fn, _ = train_loop.make_serve_fns(bundle, dev, B, S)
+    real = FA.flash_attention
+    layer_err, forms = [], set()
+
+    def checked(q, k, v, **kw):  # the kernel, then its plain version
+        out = real(q, k, v, **kw)
+        forms.add((FA.tensor_core_form(q, k, v), q.shape[-1]))
+        layer_err.append(AC.check_close(
+            f"{what} attention {len(layer_err)}", out,
+            FA.flash_attention_plain(q, k, v, **dict(
+                kw, **FA.kernel_tiles(q, k, v)))))
+        return out
+
+    stages = {}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    serve.reset_launch_counts()
+    FA.flash_attention = checked
+    try:
+        logits = prefill_fn(params, batch)
+    finally:
+        FA.flash_attention = real
+    counts = serve.launch_counts()
+    expect = {name: 0 for name in serve.KERNELS}
+    expect["flash_attention"] = n_flash
+    path_launches(what, counts, expect)
+    if tuple(logits.shape) != (B, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{what}: logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    out = {"arch": cfg.name, "batch": B, "seq": S, "launches": counts,
+           "stage_s": stages}
+    stages["checked"] = time.perf_counter() - t0
+    if n_flash:
+        if forms != {(True, cfg.head_dim or cfg.d_model // cfg.n_heads)}:
+            raise AssertionError(f"{what}: kernel 5 ran in {forms} "
+                                 "(tensor cores?, head_dim), expected its "
+                                 "tensor-core form only")
+        refs = []
+        for tiles in ({}, dict(block_q=256, block_k=256)):
+            FA.flash_attention = lambda q, k, v, **kw: (  # noqa: E731
+                FA.flash_attention_plain(q, k, v, **dict(kw, **tiles)))
+            try:
+                refs.append(prefill_fn(params, batch))
+            finally:
+                FA.flash_attention = real
+        if serve.launch_counts() != counts:
+            raise AssertionError(f"{what}: a plain-version run launched a "
+                                 "kernel")
+        stages["plain"] = time.perf_counter() - t0 - stages["checked"]
+        spread = AC.logit_spread(refs[1], refs[0])
+        limit = max(0.01, 1.5 * spread)
+        out.update(layer_max_abs_err=layer_err, plain_tilings_spread=spread,
+                   logit_limit=limit, logit_err=AC.check_logits(
+                       f"{what} last-token logits", logits, refs[0],
+                       limit=limit))
+        log(f"[families] {what}: {n_flash} launches of kernel 5 (head_dim "
+            f"{sorted(forms)[0][1]}, tensor cores), each within 2 bf16 ulps "
+            f"of its plain version (largest |d| {max(layer_err):.3g}); "
+            f"last-token logits within {out['logit_err']:.4f} of the "
+            f"row's largest |logit| of the plain-version run (tilings "
+            f"differ by {spread:.4f}; limit {limit:.4f})")
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    secs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not torch.equal(again, logits):
+            raise AssertionError(f"{what}: a repeated prefill gave other "
+                                 "logits")
+    out["prefill_s"] = sorted(secs)
+    out["prompt_tok_s"] = sorted(B * S / t for t in secs)
+    t1 = time.perf_counter()
+    if n_flash:
+        flash_ms, device_ms = kernel_device_ms(
+            lambda: prefill_fn(params, batch),
+            ("flash_kernel", "flash_wgmma_kernel"), host_ops=False)
+        out["profiled"] = {"flash_ms": flash_ms, "device_ms": device_ms,
+                           "flash_share": flash_ms / device_ms
+                           if device_ms else None}
+        stages["profiled"] = time.perf_counter() - t1
+    rates = out["prompt_tok_s"]
+    log(f"[families] {what}: prompt tokens/s median "
+        f"{rates[len(rates) // 2]:.1f} (min {rates[0]:.1f}, max "
+        f"{rates[-1]:.1f}; host clock over {repeats} prefills), peak "
+        f"{out['peak_gib']:.2f} GiB"
+        + (f"; profiled: kernel 5 {out['profiled']}" if n_flash else "")
+        + f"; seconds {stages}")
+    return out
+
+
+def family_batch(cfg, B, S, dev, seed=1):
+    """The prompt (seeded as ``serve.random_prompt``) and, for the
+    enc-dec family, the frontend stub's frames ``(B, N_FRAMES, d)``."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import whisper
+
+    batch = {"tokens": serve.random_prompt(cfg, B, S, dev, seed=seed)}
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        batch["frontend_embeds"] = torch.randn(
+            (B, whisper.N_FRAMES, cfg.d_model), generator=gen,
+            device=dev).bfloat16()
+    return batch
+
+
+def split_k_matmul(x, w):
+    """``qmm.matmul`` summed in another order: the two halves of the
+    contraction as separate float32 products, added (the CPU's product of
+    bf16 values otherwise runs as one float32 GEMM)."""
+    h = x.shape[-1] // 2
+    return (x[..., :h].float() @ w[:h].float()
+            + x[..., h:].float() @ w[h:].float()).to(x.dtype)
+
+
+def family_card_cpu(dev, cfg):
+    """A cut of the model at full width (``FAMILY_CUTS``) from seeded
+    weights on the card and the same weights on the CPU, prefilling
+    ``FAMILY_CPU_B x FAMILY_CPU_S`` tokens: with the weights in float32
+    (TF32 off), where the point is the algorithm as in ``[float]``, the
+    last-token logits within ``float_checks.CARD_CPU_RTOL`` of the row's
+    largest |logit| and the argmax equal where the margin exceeds 2 %.  In
+    bf16 the two devices' distance is reported beside the CPU's own spread
+    between two summation orders of its products, without a gate: on a
+    near-uniform random-weight row a bf16 rounding that flips with the
+    order moves a logit by about 1 % of the row's largest (F7)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree_util as tu
+    from repro_torch.launch import serve
+    from repro_torch.layers import qmm
+    from repro_torch.runtime import train_loop
+    from repro_torch.testing import attention_checks as AC
+    from repro_torch.testing.float_checks import CARD_CPU_RTOL, params_to
+
+    cut = dataclasses.replace(cfg, **FAMILY_CUTS[cfg.name])
+    bundle, params = serve.build_bundle(cut, dev)
+    batch = family_batch(cut, FAMILY_CPU_B, FAMILY_CPU_S, dev)
+    card, _ = train_loop.make_serve_fns(bundle, dev, FAMILY_CPU_B,
+                                        FAMILY_CPU_S)
+    on_cpu, _ = train_loop.make_serve_fns(bundle, "cpu", FAMILY_CPU_B,
+                                          FAMILY_CPU_S)
+    t0 = time.perf_counter()
+    out = {"cut": FAMILY_CUTS[cfg.name]}
+    for dtype in (torch.float32, torch.bfloat16):
+        p_card = tu.tree_map(lambda t: t.to(dtype) if t.is_floating_point()
+                             else t, params)
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
+        got = card(p_card, b).cpu()
+        p_cpu = params_to(p_card, "cpu")
+        del p_card
+        want = on_cpu(p_cpu, b)
+        name = str(dtype).split(".")[-1]
+        if dtype == torch.float32:
+            out["float32_logit_err"] = AC.check_logits(
+                f"{cut.name} {FAMILY_CUTS[cfg.name]} float32 card vs CPU",
+                got, want, limit=CARD_CPU_RTOL)
+            continue
+        real = qmm.matmul
+        qmm.matmul = split_k_matmul
+        try:
+            other = on_cpu(p_cpu, b)
+        finally:
+            qmm.matmul = real
+        out["bfloat16_logit_spread"] = AC.logit_spread(got, want)
+        out["bfloat16_cpu_orders_spread"] = AC.logit_spread(other, want)
+        del p_cpu
+    log(f"[families] {cfg.name} cut to {FAMILY_CUTS[cfg.name]}, "
+        f"{FAMILY_CPU_B} x {FAMILY_CPU_S} tokens: float32 weights, the "
+        f"card's last-token logits within {out['float32_logit_err']:.3g} of "
+        f"the row's largest |logit| of the CPU's (limit {CARD_CPU_RTOL}); "
+        f"bf16: {out['bfloat16_logit_spread']:.4f} apart, the CPU's two "
+        f"summation orders {out['bfloat16_cpu_orders_spread']:.4f} (no "
+        f"gate; {time.perf_counter() - t0:.1f}s)")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def families_full_width(dev):
+    """``[families]``: whisper-tiny, falcon-mamba-7b and recurrentgemma-9b
+    at full width from seeded weights, one resident on the card at a time:
+    recurrentgemma's prefill of 1 x 4096 (kernel 5 in each of its 12
+    attention layers, at head_dim 256, and no other kernel), mamba's of 1 x
+    4096 (no kernel), whisper's of 4 x 64 text tokens over the 1500 frames
+    (no kernel) and of 1 x 4096 (kernel 5 in each of the decoder's 4
+    self-attention layers, head_dim 64); each model's static serves in
+    bf16 and int8 (no kernel); a cut of each on the card against the
+    CPU."""
+    import gc
+
+    import torch
+    from repro_torch import tree_util as tu
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import recurrentgemma
+
+    out = {}
+    for name in FAMILIES:
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        bundle, params = serve.build_bundle(cfg, dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tu.leaves(params))
+        log(f"[families] {name}: seeded init of {n_params / 1e9:.3f} B "
+            f"parameters on the card in {time.perf_counter() - t0:.2f}s")
+        if cfg.family == "encdec":
+            runs = [(B, S, cfg.n_layers if S > 2048 else 0)
+                    for B, S in WHISPER_PREFILLS]
+        else:
+            n_flash = (recurrentgemma._layer_counts(cfg)[1]
+                       if cfg.family == "hybrid" else 0)
+            runs = [(1, FAMILY_PREFILL_S, n_flash)]
+        with torch.no_grad():
+            prefills = [family_prefill(
+                dev, f"prefill {name} B={B} S={S}", bundle, params,
+                family_batch(cfg, B, S, dev), n_flash, FAMILY_REPEATS)
+                for B, S, n_flash in runs]
+        serves = serve_transformer_full_width(dev, (bundle, params))
+        del bundle, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = {"n_params": n_params, "prefills": prefills,
+                     "serves": serves,
+                     "card_cpu": family_card_cpu(dev, cfg),
+                     "seconds": time.perf_counter() - t0}
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[families] {name}: {out[name]['seconds']:.1f}s")
+    return out
 
 
 class Phases:
@@ -2296,6 +2637,40 @@ def kernel_times(flag, src, tag):
     return 0
 
 
+def families_only() -> int:
+    """``--families``: kernel 5 built and checked (every case of
+    ``check_flash``), the ``[families]`` phase and kernel 5's timings, with
+    no other phase; results in ``chiprun_out/families.json``."""
+    import torch
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+    phases = Phases()
+    log(f"[build] {build.build_all(['flash_attention'])}")
+    phases.done("build")
+    err = check_flash(dev)
+    phases.done("check flash_attention")
+    families = families_full_width(dev)
+    phases.done("families")
+    flash = time_flash(dev)
+    phases.done("timing")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "families.json"), "w") as f:
+        json.dump({"gpu": smi, "flash_max_abs_err": err,
+                   "families": families, "flash": flash,
+                   "phase_s": phases.seconds}, f, indent=1)
+    log(smi)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2303,6 +2678,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing is run on the CPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--families"]:
+        return families_only()
     if sys.argv[1:2] and sys.argv[1] in TIMES:
         if len(sys.argv) != 4:
             print(f"usage: chip_smoke.py {sys.argv[1]} SRC TAG",
@@ -2369,6 +2746,8 @@ def main() -> int:
     transformer_serve = serve_transformer_full_width(dev, transformer)
     del transformer
     phases.done(f"serve {TRANSFORMER}")
+    families = families_full_width(dev)
+    phases.done("families")
     gemm, scan, gru_scan, (cell, ln) = time_kernels(dev, lstm_layer,
                                                     gru_layer)
     flash = time_flash(dev)
@@ -2380,8 +2759,13 @@ def main() -> int:
     # over them
     launches = {name: sum(e["launches"][name] for e in engines + fleet)
                 + stepwise["launches"][name] for name in stepwise["launches"]}
-    # kernel 5's main path: the long-prompt prefill of the transformer
-    launches["flash_attention"] = prefill["launches"]["flash_attention"]
+    # kernel 5's main paths: the long-prompt prefills of the transformer,
+    # of recurrentgemma and of whisper's decoder
+    family_flash = {f"{p['arch']} B={p['batch']} S={p['seq']}":
+                    p["launches"]["flash_attention"]
+                    for fam in families.values() for p in fam["prefills"]}
+    launches["flash_attention"] = prefill["launches"]["flash_attention"] \
+        + sum(family_flash.values())
     gemm_by_shape = {}
     for path in engines + fleet + [stepwise]:
         for shape, n in path["gemm_launches_by_shape"].items():
@@ -2416,10 +2800,15 @@ def main() -> int:
         kernel_entry("quant_lstm_cell", KC, launches["quant_lstm_cell"],
                      err_cell, cell[0], "the step entry of a stepwise "
                      "lstm-rnnt step, B=4 H=2048", cell),
-        kernel_entry("flash_attention", KF, launches["flash_attention"],
-                     err_flash, flash[0], "B=2 H=32 KVH=8 S=4096 D=128 "
-                     "causal bf16, tensor-core form (a qwen3-4b prefill "
-                     "layer)", flash),
+        dict(kernel_entry("flash_attention", KF, launches["flash_attention"],
+                          err_flash, flash[0], "B=2 H=32 KVH=8 S=4096 D=128 "
+                          "causal bf16, tensor-core form (a qwen3-4b "
+                          "prefill layer; the head_dim-256 rows of a "
+                          "recurrentgemma-9b layer follow in shapes)",
+                          flash),
+             launches_by_path=dict(
+                 {f"{TRANSFORMER} B={PREFILL_B} S={PREFILL_S}":
+                  prefill["launches"]["flash_attention"]}, **family_flash)),
     ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2429,6 +2818,7 @@ def main() -> int:
                    "float": float_serves, "train": train,
                    "stepwise": stepwise, "prefill": prefill,
                    "transformer_serve": transformer_serve,
+                   "families": families,
                    "grid_barrier": barrier,
                    "batch": B, "prompt_len": T, "gen": GEN,
                    "phase_s": phases.seconds}, f, indent=1)

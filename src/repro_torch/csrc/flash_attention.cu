@@ -16,11 +16,13 @@
 // What bounds it on an H100: at the prefill shape (B 2, H 32, S 4096,
 // D 128, causal) operations, 2*B*H*S^2*D = 275 GFLOP against 168 MB of
 // q/k/v/o: 0.28 ms at the 989 TFLOP/s of the bf16 tensor cores.  Two forms:
-//  * the tensor-core form (bf16, D 64 or 128, rows 16-byte aligned: every
-//    tensor the model passes; flash_wgmma_kernel), shaped after
+//  * the tensor-core form (bf16, D 64, 128 or 256, rows 16-byte aligned:
+//    every tensor the model passes; flash_wgmma_kernel), shaped after
 //    FlashAttention-3.  One CTA of two warpgroups per (128-row q tile,
 //    head, batch); thread 0 issues TMA copies: the q tile once, then each
-//    128-key K and V tile into a two-stage ring guarded by full/empty
+//    K and V tile (128 keys; 64 at D 256, where the q tile and two stages
+//    of 128-key K and V tiles would need 320 KB of shared memory, the
+//    64-key ring 192 KB) into a two-stage ring guarded by full/empty
 //    mbarriers, refilling a stage as soon as both warpgroups are done with
 //    it, so the next tile is in flight while the tensor cores work on this
 //    one.  The tensor maps are 4-D (D, heads, S, B) over the tensors' own
@@ -31,17 +33,19 @@
 //    registers handed over by setmaxnreg, measured slower, as did
 //    overlapping one tile's softmax with the next tile's products, which
 //    ptxas serializes: PERF.md): S = q k^T is wgmma m64n128k16 with both
-//    operands in shared memory; P is formed from the S accumulators in
-//    registers, rounded to bf16 (the TPU kernel's cast; l sums the
-//    unrounded float32 p) and fed as the register A operand of O += P v,
-//    v being the MN-major shared-memory B operand.  Only key tiles that
+//    operands in shared memory (m64n64k16 at D 256); P is formed from the S
+//    accumulators in registers, rounded to bf16 (the TPU kernel's cast; l
+//    sums the unrounded float32 p) and fed as the register A operand of
+//    O += P v, v being the MN-major shared-memory B operand (at D 256 two
+//    m64n128k16 halves: a warpgroup's 64 x 256 float32 O takes 128 of a
+//    thread's 255 registers, S 32 and P 16).  Only key tiles that
 //    cross the causal diagonal, the window edge or Sk run the mask
 //    (tiles::tile_masked); exponentials are exp2f with log2(e) folded into
 //    the scale; causal q tiles are scheduled longest first.
 //  * the FMA form (float32, other head widths, unaligned rows) stages 64 x
 //    64 tiles as float32 and runs the products on the float32 FMA units
 //    (67 TFLOP/s), 256 threads each holding a 4 x 4 block of logits
-//    (flash_kernel).
+//    (flash_kernel); two CTAs an SM, one at D 256 (194 KB of tiles).
 // Both skip the key tiles that the mask empties for every row of the q
 // tile (tiles::tile_range, exact; flash_tiles.cuh).
 #include <cuda.h>
@@ -98,10 +102,13 @@ struct Smem {
   static constexpr int kKP = (kBK * kRow > kBQ * kPRow) ? kBK * kRow : kBQ * kPRow;
   static constexpr int kV = kBK * D;
   static constexpr size_t kBytes = sizeof(float) * (kQ + kKP + kV);
+  // CTAs an SM that the tiles leave room for (227 KB a block, 228 an SM)
+  static constexpr int kMinBlocks = 2 * kBytes <= 227 * 1024 ? 2 : 1;
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
+    flash_kernel(Args a) {
   using S = Smem<D>;
   constexpr int kVec = D >= 64 ? 4 : 1;  // accumulator columns per group
   constexpr int kCols = D / 16;          // accumulator columns per thread
@@ -259,7 +266,6 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(Args a) {
 namespace tc {
 
 constexpr int kBQ = 128;      // q rows per CTA: 64 per consumer warpgroup
-constexpr int kBK = 128;      // keys per K/V tile
 constexpr int kStages = 2;    // K/V ring depth
 constexpr int kConsumers = 2;  // warpgroups of 64 q rows
 constexpr int kThreads = 128 * kConsumers;
@@ -267,12 +273,15 @@ constexpr int kBox = 64;      // bf16 columns per TMA box (128 bytes)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // tile byte sizes; a tile is D/64 column blocks of rows x 128 bytes, each
-// block 128-byte swizzled by TMA
+// block 128-byte swizzled by TMA.  Keys per K/V tile: 128, or 64 at D 256,
+// where 128 would need 64 KB of q and 4 x 64 KB of K and V stages
 template <int D>
 struct Layout {
+  static constexpr int kBK = D > 128 ? 64 : 128;
   static constexpr int kQ = kBQ * D * 2;
   static constexpr int kKV = kBK * D * 2;
   static constexpr size_t kBytes = kQ + 2 * kStages * kKV + 1024;  // + align
+  static_assert(kBytes <= 227 * 1024, "tiles exceed a block's shared memory");
 };
 
 struct Params {
@@ -402,24 +411,52 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d (64 x 128 float32) += A (64 x 16 bf16, registers) * B (16 x 128 bf16,
-// shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+// d (64 x 64 float32) (+)= A (64 x 16 bf16, shared memory, K-major) * B
+// (16 x 64, shared memory, K-major); d is overwritten when scale_d is 0
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int BK>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BK / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (BK == 128) {
+    wgmma_ss_n128(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_ss_n64(d, desc_a, desc_b, scale_d);
+  }
+}
+
+// d[kOff, kOff + 64) (64 x 128 float32 of a wider accumulator) += A (64 x
+// 16 bf16, registers) * B (16 x 128 bf16, shared memory, MN-major)
+template <int kOff, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
                                              const uint32_t (&a)[4],
                                              uint64_t desc_b) {
+  static_assert(kOff + 64 <= N, "accumulator slice out of range");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[kOff + 0]), "+f"(d[kOff + 1]), "+f"(d[kOff + 2]), "+f"(d[kOff + 3]), "+f"(d[kOff + 4]), "+f"(d[kOff + 5]), "+f"(d[kOff + 6]), "+f"(d[kOff + 7]),
+        "+f"(d[kOff + 8]), "+f"(d[kOff + 9]), "+f"(d[kOff + 10]), "+f"(d[kOff + 11]), "+f"(d[kOff + 12]), "+f"(d[kOff + 13]), "+f"(d[kOff + 14]), "+f"(d[kOff + 15]),
+        "+f"(d[kOff + 16]), "+f"(d[kOff + 17]), "+f"(d[kOff + 18]), "+f"(d[kOff + 19]), "+f"(d[kOff + 20]), "+f"(d[kOff + 21]), "+f"(d[kOff + 22]), "+f"(d[kOff + 23]),
+        "+f"(d[kOff + 24]), "+f"(d[kOff + 25]), "+f"(d[kOff + 26]), "+f"(d[kOff + 27]), "+f"(d[kOff + 28]), "+f"(d[kOff + 29]), "+f"(d[kOff + 30]), "+f"(d[kOff + 31]),
+        "+f"(d[kOff + 32]), "+f"(d[kOff + 33]), "+f"(d[kOff + 34]), "+f"(d[kOff + 35]), "+f"(d[kOff + 36]), "+f"(d[kOff + 37]), "+f"(d[kOff + 38]), "+f"(d[kOff + 39]),
+        "+f"(d[kOff + 40]), "+f"(d[kOff + 41]), "+f"(d[kOff + 42]), "+f"(d[kOff + 43]), "+f"(d[kOff + 44]), "+f"(d[kOff + 45]), "+f"(d[kOff + 46]), "+f"(d[kOff + 47]),
+        "+f"(d[kOff + 48]), "+f"(d[kOff + 49]), "+f"(d[kOff + 50]), "+f"(d[kOff + 51]), "+f"(d[kOff + 52]), "+f"(d[kOff + 53]), "+f"(d[kOff + 54]), "+f"(d[kOff + 55]),
+        "+f"(d[kOff + 56]), "+f"(d[kOff + 57]), "+f"(d[kOff + 58]), "+f"(d[kOff + 59]), "+f"(d[kOff + 60]), "+f"(d[kOff + 61]), "+f"(d[kOff + 62]), "+f"(d[kOff + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -440,13 +477,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  if constexpr (D == 128) {
-    wgmma_rs_n128(d, a, desc_b);
+// O (64 x D float32) += P (64 x 16 keys, registers) * v (16 keys x D, the
+// MN-major K/V stage at `vt`, its 64-column blocks BK * 128 bytes apart);
+// D 256 takes two n128 halves
+template <int D, int BK>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         const uint8_t* vt) {
+  if constexpr (D == 256) {
+    wgmma_rs_n128<0>(d, a, make_desc(vt, BK * 128, 1024));
+    wgmma_rs_n128<64>(d, a, make_desc(vt + 2 * BK * 128, BK * 128, 1024));
+  } else if constexpr (D == 128) {
+    wgmma_rs_n128<0>(d, a, make_desc(vt, BK * 128, 1024));
   } else {
-    wgmma_rs_n64(d, a, desc_b);
+    wgmma_rs_n64(d, a, make_desc(vt, BK * 128, 1024));
   }
 }
 
@@ -456,6 +499,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, Params a) {
   using L = Layout<D>;
+  constexpr int kBK = L::kBK;    // keys per K/V tile
+  constexpr int kS = kBK / 2;    // S accumulators a thread: 64 x kBK
   constexpr int kCB = D / kBox;  // column blocks of a row
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, bar_k[kStages], bar_v[kStages],
@@ -540,16 +585,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint8_t* Kt = Ks + s * L::kKV;
       const uint8_t* Vt = Vs + s * L::kKV;
 
-      // S = q k^T: 64 rows x 128 keys, D / 16 k-steps of 32 bytes each
-      float sacc[64];
+      // S = q k^T: 64 rows x kBK keys, D / 16 k-steps of 32 bytes each
+      float sacc[kS];
 #pragma unroll
-      for (int i2 = 0; i2 < 64; ++i2) sacc[i2] = 0.f;  // overwritten: scale_d 0
+      for (int i2 = 0; i2 < kS; ++i2) sacc[i2] = 0.f;  // overwritten: scale_d 0
       mbar_wait(&bar_k[s], phase);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int cb = kk / 4, kin = (kk % 4) * 32;
-        wgmma_ss_n128(sacc,
+        wgmma_ss<kBK>(sacc,
                       make_desc(Qs + cb * kBQ * 128 + wg * 64 * 128 + kin, 16,
                                 1024),
                       make_desc(Kt + cb * kBK * 128 + kin, 16, 1024), kk > 0);
@@ -561,10 +606,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       // logits in log2 units; the mask only on the tiles that need it
       // (keys past Sk take no weight at all: -inf)
 #pragma unroll
-      for (int i2 = 0; i2 < 64; ++i2) sacc[i2] *= sl2;
+      for (int i2 = 0; i2 < kS; ++i2) sacc[i2] *= sl2;
       if (tiles::tile_masked(mk, qp_lo, qp_hi, k0, kBK)) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int kp = k0 + 8 * j + 2 * t4 + e;
@@ -580,7 +625,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBK / 8; ++j) {
         mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
         mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
       }
@@ -592,9 +637,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
       const float alpha0 = exp2f(m0 - n0), alpha1 = exp2f(m1 - n1);
       float sum0 = 0.f, sum1 = 0.f;
-      uint32_t pa[8][4];  // P as the A operand; k-step kk = keys 16kk..16kk+15
+      uint32_t pa[kBK / 16][4];  // P as the A operand; k-step kk = keys 16kk..
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBK / 8; ++j) {
         const float p00 = exp2f(sacc[4 * j] - n0);
         const float p01 = exp2f(sacc[4 * j + 1] - n0);
         const float p10 = exp2f(sacc[4 * j + 2] - n1);
@@ -621,13 +666,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         o[4 * c + 3] *= alpha1;
       }
 
-      // O += P v: 8 k-steps of 16 keys; v is MN-major (D contiguous), its
-      // 64-column blocks kBK * 128 bytes apart
+      // O += P v: kBK / 16 k-steps of 16 keys; v is MN-major (D
+      // contiguous), its 64-column blocks kBK * 128 bytes apart
       mbar_wait(&bar_v[s], phase);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        wgmma_rs<D>(o, pa[kk], make_desc(Vt + kk * 16 * 128, kBK * 128, 1024));
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        wgmma_pv<D, kBK>(o, pa[kk], Vt + kk * 16 * 128);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -725,6 +770,7 @@ int launch(const Args& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   Params p{a.o, a.B, a.Sq, a.Sk, a.H, a.KVH, a.causal, a.window, a.q_offset,
            (a.Sq + kBQ - 1) / kBQ, a.scale * kLog2e};
+  constexpr int kBK = Layout<D>::kBK;
   if (!make_map(&mq, p.q_pos, a.q, D, a.H, a.Sq, a.B, a.qsh, a.qss, a.qsb,
                 kBQ) ||
       !make_map(&mk, p.k_pos, a.k, D, a.KVH, a.Sk, a.B, a.ksh, a.kss, a.ksb,
@@ -774,6 +820,7 @@ int launch_dim(const Args& a, int D, cudaStream_t stream) {
     case 16: return launch<T, 16>(a, stream);
     case 64: return launch<T, 64>(a, stream);
     case 128: return launch<T, 128>(a, stream);
+    case 256: return launch<T, 256>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -796,8 +843,14 @@ extern "C" int flash_attention_launch(
                vss, vsh, B,   Sq, Sk,  H,   KVH,    causal, window,   q_offset,
                scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && (D == 64 || D == 128) && rows_aligned(a))
-    return D == 64 ? tc::launch<64>(a, st) : tc::launch<128>(a, st);
+  if (dtype == 1 && rows_aligned(a)) {
+    switch (D) {
+      case 64: return tc::launch<64>(a, st);
+      case 128: return tc::launch<128>(a, st);
+      case 256: return tc::launch<256>(a, st);
+      default: break;
+    }
+  }
   return dtype == 1 ? launch_dim<__nv_bfloat16>(a, D, st)
                     : launch_dim<float>(a, D, st);
 }

@@ -19,10 +19,11 @@ reads KV head ``h // (H // KVH)`` in place).  Unlike the TPU kernel, any
 ``Sq``/``Sk`` is taken: the ragged tail of the last tile is masked.
 
 The kernel has two forms (``csrc/flash_attention.cu``): bf16 inputs with
-head_dim 64 or 128 and rows aligned to 16 bytes (every tensor the model
-passes) run on the tensor cores (TMA loads into a ring of 128-key tiles,
-``wgmma`` products, 128-row q tiles), everything else on the float32 FMA
-units (64 x 64 tiles).  ``kernel_tiles`` says which tiles a call runs at.
+head_dim 64, 128 or 256 and rows aligned to 16 bytes (every tensor the
+model passes) run on the tensor cores (TMA loads into a ring of 128-key
+tiles, 64-key at head_dim 256, ``wgmma`` products, 128-row q tiles),
+everything else on the float32 FMA units (64 x 64 tiles).
+``kernel_tiles`` says which tiles a call runs at.
 
 ``scale`` defaults to ``1/sqrt(D)`` applied to the float32 logits, the TPU
 kernel's semantics.  ``layers.attention.flash_attention`` pre-scales q in
@@ -48,9 +49,9 @@ REPLACES = "src/repro/kernels/flash_attention.py:77"
 NEG_INF = -1e30
 BLOCK_Q = 64  # the FMA form's tiles (rows of q, rows of k per step)
 BLOCK_K = 64
-TC_BLOCK_Q = 128  # the tensor-core form's tiles
-TC_BLOCK_K = 128
-HEAD_DIMS = (16, 64, 128)  # head widths the kernel is built for
+TC_BLOCK_Q = 128  # the tensor-core form's tiles: q rows, and keys by head_dim
+TC_BLOCK_K = {64: 128, 128: 128, 256: 64}
+HEAD_DIMS = (16, 64, 128, 256)  # head widths the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # kernel launches since the last reset (plain calls not counted)
@@ -73,9 +74,9 @@ def _check_shapes(q, k, v):
 def tensor_core_form(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                      ) -> bool:
     """Does the CUDA kernel run these inputs in its tensor-core form?  bf16,
-    head_dim 64 or 128, base addresses and batch/sequence/head strides
+    head_dim 64, 128 or 256, base addresses and batch/sequence/head strides
     aligned to 16 bytes (what TMA needs to read the rows in place)."""
-    if q.dtype != torch.bfloat16 or q.shape[-1] not in (64, 128):
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in TC_BLOCK_K:
         return False
     return all(t.data_ptr() % 16 == 0 and all(st % 8 == 0
                                               for st in t.stride()[:3])
@@ -87,7 +88,7 @@ def kernel_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """``{block_q, block_k}``: the tiles the CUDA kernel runs these inputs
     at, for holding it against the plain version at its own tiles."""
     if tensor_core_form(q, k, v):
-        return dict(block_q=TC_BLOCK_Q, block_k=TC_BLOCK_K)
+        return dict(block_q=TC_BLOCK_Q, block_k=TC_BLOCK_K[q.shape[-1]])
     return dict(block_q=BLOCK_Q, block_k=BLOCK_K)
 
 
@@ -161,7 +162,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "the flash-attention kernel has no backward yet (ROADMAP Queue 1 "
-            "item 9): train at S <= 1024, where the model takes "
+            "item 5): train at S <= 1024, where the model takes "
             "full_attention, or run this forward under torch.no_grad()")
     _check_shapes(q, k, v)
     B, Sq, H, D = q.shape

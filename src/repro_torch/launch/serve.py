@@ -13,6 +13,8 @@ baseline, and the dense transformer family.
         --fault-spec '{"kills": [{"shard": 0, "at_frac": 0.5, "restart_after": 8}]}'
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         [--quant int8] --batch 4 --prompt-len 32 --gen 16 --max-len 256
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+        falcon-mamba-7b [--quant int8]   # or whisper-tiny, recurrentgemma-9b
 
 Seeded float init, calibration and the Table-2 recipe, then either the
 static batch (ONE integer prefill over the prompt and a greedy decode
@@ -36,7 +38,12 @@ through the bundle's ``decode``, then greedy decoding.  That is a
 transformer (``--quant none``, the default, or ``int8``: int8 weights and
 an int8 KV cache, in a ``--max-len`` cache; decode never reaches the
 flash kernel, only a prefill of more than 1024 positions does,
-``runtime.train_loop.make_serve_fns``) or the float recurrent LM
+``runtime.train_loop.make_serve_fns``), whisper-tiny (frames of the
+frontend stub are not read in decode: its cross-attention cache stays
+zero, as in the reference), falcon-mamba-7b or recurrentgemma-9b (``int8``
+quantizes their weights; their recurrent state and recurrentgemma's
+window cache stay float; no kernel launches in decode), or the float
+recurrent LM
 (``--quant none`` on ``lstm-rnnt`` / ``gru-rnnt``: the paper's accuracy
 baseline, plain PyTorch products, no kernel launched).  ``--quant int8``
 on the recurrent family is refused: its float cell cannot take int8
@@ -444,6 +451,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
                          "versions")
+    # float32 products in full: the recurrent scans' and heads' float32
+    # einsums and matmuls must not round their inputs to TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if args.quant not in RECURRENT_QUANT:
         if cfg.family not in model_zoo.PORTED:
             raise SystemExit(f"--quant {args.quant} serves the "

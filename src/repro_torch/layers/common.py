@@ -3,11 +3,12 @@
 Initializers draw from an explicit ``torch.Generator`` on the target
 device and return the tensor alone: the reference's logical sharding specs
 have no counterpart here.  Both norms compute in float32 and cast back to
-the input's dtype, as the reference does.
+the input's dtype, as the reference does.  ``causal_conv1d`` is the
+depthwise time convolution of the recurrent layers (ssm, RG-LRU).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,3 +70,29 @@ def norm_init(kind: str, d: int, name: str, params: Params,
     params[name] = ones_init((*stack, d), dtype, device)
     if kind == "layernorm":
         params[name + "_b"] = zeros_init((*stack, d), dtype, device)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                  cache: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over time.  x ``(B, T, D)``; w ``(K, D)``.
+
+    With ``cache`` ``(B, K-1, D)`` (decode) the cache's inputs precede x;
+    otherwise zeros do (train/prefill).  Returns ``(y, the last K-1
+    inputs)``, the new cache.  The taps add in order, each product and sum
+    rounded in x's dtype, as the reference's loop computes them.
+    """
+    K = w.shape[0]
+    if cache is None:
+        pad = x.new_zeros(x.shape[:1] + (K - 1,) + x.shape[2:])
+    else:
+        pad = cache.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # (B, T+K-1, D)
+    T = x.shape[1]
+    y = torch.zeros_like(x)
+    for k in range(K):
+        y = y + xp[:, k:k + T] * w[k]
+    if b is not None:
+        y = y + b
+    new_cache = xp[:, xp.shape[1] - (K - 1):] if K > 1 else xp[:, :0]
+    return y, new_cache

@@ -26,8 +26,9 @@ def embed_init(generator: torch.Generator, vocab: int, d_model: int,
         params["lm_head"] = head.to(device=device, dtype=torch.bfloat16)
 
 
-def embed_tokens(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return emb_lookup(params["embedding"], tokens)
+def embed_tokens(params: Dict, tokens: torch.Tensor,
+                 unrounded: bool = False) -> torch.Tensor:
+    return emb_lookup(params["embedding"], tokens, unrounded)
 
 
 def logits_head(params: Dict, x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,10 @@ reference computes them: ``jax.nn.silu`` is ``x * sigmoid(x)`` with the
 logistic expanded to ``1 / (1 + exp(-x))``, and ``jax.nn.gelu`` is the
 tanh approximation with its constants in the input's dtype; in bf16 every
 op rounds.  ``F.silu``/``F.gelu`` round once and move a smoke model's
-logits by ~2 % of the row's largest (ROADMAP Queue 3, F5).
+logits by ~2 % of the row's largest (ROADMAP Queue 3, F5).  ``sigmoid``
+and ``softplus`` (``jax.nn.softplus`` is ``logaddexp(x, 0)``) serve the
+recurrent layers (``layers/ssm.py``, ``layers/recurrent.py``) by the same
+rule.
 """
 from __future__ import annotations
 
@@ -32,8 +35,17 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, kind: str,
         generator, stack + (d_ff, d_model), dtype, device=device)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * (1 / (1 + torch.exp(-x)))
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``max(x, 0) + log1p(exp(-|x|))``, op by op in x's dtype."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
 def _in_dtype(value: float, dtype: torch.dtype) -> float:

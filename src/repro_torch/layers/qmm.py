@@ -41,13 +41,19 @@ def mm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
     return matmul(x, w)
 
 
-def emb_lookup(w: QWeight, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of the embedding table for integer token ids."""
+def emb_lookup(w: QWeight, ids: torch.Tensor, unrounded: bool = False
+               ) -> torch.Tensor:
+    """Rows of the embedding table for integer token ids.  With
+    ``unrounded`` an int8 table's rows come back as the float32 product of
+    row and scale, not rounded to bf16: what a jitted reference hands a
+    norm that reads the lookup directly (ROADMAP Queue 3, F6)."""
     ids = ids.to(torch.long)
     if is_quant(w):
         rows = w["q"][ids]
-        scale = w["s"][ids]
-        return rows.to(torch.bfloat16) * scale[..., None].to(torch.bfloat16)
+        scale = w["s"][ids][..., None].to(torch.bfloat16)
+        if unrounded:
+            return rows.float() * scale.float()
+        return rows.to(torch.bfloat16) * scale
     return w[ids]
 
 

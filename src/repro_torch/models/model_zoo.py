@@ -12,12 +12,15 @@
 
 for the ``dense`` and ``vlm`` families (``batch`` is ``{"tokens": (B, S)}``,
 plus ``"labels"`` for the loss and ``"frontend_embeds": (B, F, d)`` for the
-VLM stub) and the ``lstm`` family, the float recurrent LM of every
-``rnn_cell`` (``lstm-rnnt``, ``gru-rnnt``), whose state does not grow with
-``max_len``.  Params and
-state go to the card unless the caller passes another device.  The
-dry-run's ``input_specs`` is not ported; the other families raise
-(ROADMAP Queue 1).
+VLM stub), the ``lstm`` family (the float recurrent LM of every
+``rnn_cell``: ``lstm-rnnt``, ``gru-rnnt``), ``encdec`` (whisper-tiny: the
+batch also holds ``"frontend_embeds": (B, N_FRAMES, d)``, the frontend
+stub's frames), ``ssm`` (falcon-mamba-7b) and ``hybrid``
+(recurrentgemma-9b, whose attention cache is clamped to its window).  Only
+the dense family's cache takes ``quantized`` (int8 K/V); the others keep
+their float state, as in the reference.  Params and state go to the card
+unless the caller passes another device.  The dry-run's ``input_specs`` is
+not ported; the MoE family raises (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -25,9 +28,9 @@ import dataclasses
 from typing import Callable
 
 from ..configs.base import ArchConfig
-from . import lstm_lm, transformer
+from . import lstm_lm, mamba, recurrentgemma, transformer, whisper
 
-PORTED = ("dense", "vlm", "lstm")
+PORTED = ("dense", "vlm", "lstm", "encdec", "ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -44,46 +47,65 @@ def build(cfg: ArchConfig) -> ModelBundle:
     if cfg.family not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ported: {', '.join(PORTED)}; ROADMAP Queue 1)")
-    if cfg.family == "lstm":
-        # one registration serves every cell: lstm_lm dispatches on
-        # cfg.rnn_cell, as the reference's does
-        def init(generator, device="cuda"):
-            return lstm_lm.init_params(generator, cfg, device)
+            f"(ported: {', '.join(PORTED)}; ROADMAP Queue 1 item 7)")
+    return _FAMILIES[cfg.family](cfg)
 
-        def loss(params, batch):
-            return lstm_lm.loss_fn(params, cfg, batch)
 
-        def prefill(params, batch):
-            return lstm_lm.prefill(params, cfg, batch["tokens"])
-
-        def init_state(batch, max_len, quantized=False, device="cuda"):
-            return lstm_lm.init_decode_state(cfg, batch, device)
-
-        def decode(params, token, state):
-            return lstm_lm.decode_step(params, cfg, token, state)
-
-        return ModelBundle(cfg, init, loss, prefill, init_state, decode)
-
-    transformer.check_dense(cfg)
-
+def _module_bundle(cfg: ArchConfig, mod, prefill, init_state
+                   ) -> ModelBundle:
+    """The bundle of a model module with the reference's ``init_params``,
+    ``loss_fn`` and ``decode_step``; ``prefill(params, batch)`` and
+    ``init_state(batch, max_len, quantized, device)`` are the family's
+    own."""
     def init(generator, device="cuda"):
-        return transformer.init_params(generator, cfg, device)
+        return mod.init_params(generator, cfg, device)
 
     def loss(params, batch):
-        return transformer.loss_fn(params, cfg, batch)
+        return mod.loss_fn(params, cfg, batch)
 
-    def prefill(params, batch):
-        return transformer.prefill(
-            params, cfg, batch["tokens"],
-            frontend_embeds=batch.get("frontend_embeds"))
+    def state(batch, max_len, quantized=False, device="cuda"):
+        return init_state(batch, max_len, quantized, device)
 
-    def init_state(batch, max_len, quantized=False, device="cuda"):
-        return transformer.init_decode_cache(cfg, batch, max_len,
-                                             quantized=quantized,
-                                             device=device)
+    def decode(params, token, st):
+        return mod.decode_step(params, cfg, token, st)
 
-    def decode(params, token, state):
-        return transformer.decode_step(params, cfg, token, state)
+    return ModelBundle(cfg, init, loss, prefill, state, decode)
 
-    return ModelBundle(cfg, init, loss, prefill, init_state, decode)
+
+def _dense(cfg: ArchConfig) -> ModelBundle:
+    transformer.check_dense(cfg)
+    return _module_bundle(
+        cfg, transformer,
+        lambda p, b: transformer.prefill(
+            p, cfg, b["tokens"], frontend_embeds=b.get("frontend_embeds")),
+        lambda batch, max_len, quantized, device:
+        transformer.init_decode_cache(cfg, batch, max_len,
+                                      quantized=quantized, device=device))
+
+
+_FAMILIES = {
+    "dense": _dense,
+    "vlm": _dense,
+    # one registration serves every cell: lstm_lm dispatches on
+    # cfg.rnn_cell, as the reference's does
+    "lstm": lambda cfg: _module_bundle(
+        cfg, lstm_lm, lambda p, b: lstm_lm.prefill(p, cfg, b["tokens"]),
+        lambda batch, max_len, quantized, device:
+        lstm_lm.init_decode_state(cfg, batch, device)),
+    "encdec": lambda cfg: _module_bundle(
+        cfg, whisper,
+        lambda p, b: whisper.prefill(p, cfg, b["tokens"],
+                                     b["frontend_embeds"]),
+        lambda batch, max_len, quantized, device:
+        whisper.init_decode_state(cfg, batch, max_len, device=device)),
+    "ssm": lambda cfg: _module_bundle(
+        cfg, mamba, lambda p, b: mamba.prefill(p, cfg, b["tokens"]),
+        lambda batch, max_len, quantized, device:
+        mamba.init_decode_state(cfg, batch, device=device)),
+    "hybrid": lambda cfg: _module_bundle(
+        cfg, recurrentgemma,
+        lambda p, b: recurrentgemma.prefill(p, cfg, b["tokens"]),
+        lambda batch, max_len, quantized, device:
+        recurrentgemma.init_decode_state(
+            cfg, batch, min(cfg.attn_window, max_len), device=device)),
+}

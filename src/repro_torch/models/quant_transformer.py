@@ -5,8 +5,9 @@ every large (>= 2-D, >= 16k-element) float weight of the whitelist into
 ``{"q": int8, "s": float32}``: symmetric max/127 per output channel (the
 scale reduces only the contraction axis, -2, so a stacked ``(L, in, out)``
 weight keeps its layer axis: ``{"q": (L, in, out), "s": (L, out)}``), and
-per row for the embedding.  ``quantize_bundle`` also makes the decode cache
-int8.  The reference's ``quantize_specs`` mirrors logical sharding specs,
+per row for the embedding.  ``quantize_bundle`` also asks for an int8
+decode cache, which the dense family's takes (the recurrent families keep
+their float state, as in the reference).  The reference's ``quantize_specs`` mirrors logical sharding specs,
 which the port does not have.
 """
 from __future__ import annotations
@@ -45,7 +46,19 @@ def _should_quantize(path: str, leaf) -> bool:
 
 def _quantize(path: str, leaf: torch.Tensor):
     """One weight -> ``{"q", "s"}``.  The division is true division: the
-    reference launcher runs this eagerly, outside jit."""
+    reference launcher runs this eagerly, outside jit.  A stack of layers
+    is quantized a layer at a time (the same values: each layer's scales
+    reduce its own contraction axis), so the float32 temporaries stay one
+    layer's size (a full-width mamba ``in_proj`` stack is 4.3 G
+    elements)."""
+    if leaf.dim() > 2:
+        q = torch.empty(leaf.shape, dtype=torch.int8, device=leaf.device)
+        s = torch.empty(leaf.shape[:-2] + leaf.shape[-1:],
+                        dtype=torch.float32, device=leaf.device)
+        for i in range(leaf.shape[0]):
+            part = _quantize(path, leaf[i])
+            q[i], s[i] = part["q"], part["s"]
+        return {"q": q, "s": s}
     wf = leaf.float()
     if "embedding" in path:  # (vocab, d): per row
         s = torch.clamp_min(torch.amax(torch.abs(wf), dim=-1), 1e-8) / 127.0
@@ -57,11 +70,18 @@ def _quantize(path: str, leaf: torch.Tensor):
 
 
 def quantize_param_tree(params, path: str = "") -> Any:
-    """int8 per-channel quantization of a (nested dict) param tree; returns
-    a new tree and leaves the input as it was."""
+    """int8 per-channel quantization of a param tree (nested dicts, and
+    lists such as whisper's layer lists, a leaf's path naming list items by
+    index as the reference's does); returns a new tree and leaves the input
+    as it was.  Float leaves off the whitelist (``A_log``, ``D``,
+    ``rg_lambda``, the norms and biases) stay as they are."""
     if isinstance(params, dict):
         return {k: quantize_param_tree(v, f"{path}/{k}" if path else str(k))
                 for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(
+            quantize_param_tree(v, f"{path}/{i}" if path else str(i))
+            for i, v in enumerate(params))
     if _should_quantize(path, params):
         return _quantize(path, params)
     return params

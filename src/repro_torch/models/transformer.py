@@ -42,10 +42,12 @@ def check_dense(cfg: ArchConfig) -> None:
 # --------------------------------------------------------------------------
 
 
-def _layers_init(generator: torch.Generator, cfg: ArchConfig, device
-                 ) -> Dict[str, torch.Tensor]:
-    """Every layer's weights, stacked on a leading (n_layers,) axis."""
-    L = (cfg.n_layers,)
+def _layers_init(generator: torch.Generator, cfg: ArchConfig, device,
+                 n_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Every layer's weights, stacked on a leading ``(n_layers,)`` axis
+    (``cfg.n_layers`` unless given: recurrentgemma stacks its attention
+    layers alone)."""
+    L = (cfg.n_layers if n_layers is None else n_layers,)
     d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p: Dict[str, Any] = {}
     norm_init(cfg.norm_type, d, "norm_attn", p, device=device, stack=L)
@@ -143,16 +145,28 @@ def _attention_block(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     return qmm.mm(o.reshape(B, S, H * hd), p["wo"])
 
 
+def residual_mlp(p: Dict, cfg: ArchConfig, x, h, unrounded: bool = False):
+    """The second half of a block: ``x + h``, then the MLP on its norm,
+    added, in h's dtype.  The residual sum reaches the MLP's norm unrounded
+    and the residual stream rounded, as the jitted reference computes it:
+    XLA drops the bf16 rounding of a sum that is cast to float32, as a norm
+    casts its input (ROADMAP Queue 3, F6).  ``unrounded`` returns the
+    block's own sum unrounded too, in float32, for a model whose layers
+    the reference unrolls (the next norm reads it so; ``x`` may then be
+    such a sum)."""
+    dt = h.dtype
+    x2 = x.to(dt).float() + h.float()
+    y = mlp_apply(p, norm_apply(cfg.norm_type, x2, p, "norm_mlp").to(dt),
+                  cfg.mlp_type)
+    if unrounded:
+        return x2.to(dt).float() + y.float()
+    return x2.to(dt) + y
+
+
 def _block(p: Dict, cfg: ArchConfig, x, positions, cache=None):
     h = _attention_block(p, cfg, norm_apply(cfg.norm_type, x, p, "norm_attn"),
                          positions, cache)
-    # the residual sum reaches the MLP's norm unrounded and the residual
-    # stream rounded to x's dtype, as the jitted reference computes it (XLA
-    # drops the bf16 round trip before the norm; ROADMAP Queue 3, F6)
-    x2 = x.float() + h.float()
-    y = mlp_apply(p, norm_apply(cfg.norm_type, x2, p, "norm_mlp").to(x.dtype),
-                  cfg.mlp_type)
-    return x2.to(x.dtype) + y
+    return residual_mlp(p, cfg, x, h)
 
 
 def _run_layers(params, cfg: ArchConfig, x, positions,

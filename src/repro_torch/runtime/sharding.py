@@ -8,7 +8,7 @@ survivors' slot tensors live elsewhere.  Each shard's engine runs on the
 FIRST device of its group (``launch/fleet.py``); data-parallel slots
 inside a shard, the reference's ``fleet_meshes``, its logical-axis rules
 and the shardings built from them wait for the port's sharded step (ROADMAP
-Queue 1 item 11).
+Queue 1 item 9).
 """
 from __future__ import annotations
 

@@ -22,11 +22,15 @@ from typing import Any, Dict, Iterator, Tuple
 
 import torch
 
-# (B, H, KVH, S, D); S = 1100 is ragged for any power-of-two tile
+# (B, H, KVH, S, D); S = 1100 (and 300) is ragged for any power-of-two tile
 FLASH_SHAPES = ((2, 4, 4, 256, 64), (1, 32, 8, 1100, 128),
                 (2, 32, 8, 4096, 128))
 FLASH_MASKS = (("causal", True, 0), ("non-causal", False, 0),
                ("causal window 64", True, 64))
+# head_dim 256 (recurrentgemma's MQA layers: 16 query heads over one KV
+# head), with a window whose edge falls inside the 64-key tiles
+FLASH_SHAPES_D256 = ((2, 4, 2, 300, 256), (1, 16, 1, 1100, 256))
+FLASH_MASKS_D256 = FLASH_MASKS + (("causal window 300", True, 300),)
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -41,14 +45,14 @@ def unaligned(t: torch.Tensor) -> torch.Tensor:
     return view
 
 
-def flash_cases(gen: torch.Generator, shapes=FLASH_SHAPES
+def flash_cases(gen: torch.Generator, shapes=FLASH_SHAPES, masks=FLASH_MASKS
                 ) -> Iterator[Tuple[str, Dict[str, Any]]]:
     """``(label, kwargs)`` for ``flash_attention`` and its plain version:
     every shape x dtype x (the kernel's own scale, or q pre-scaled in its
     dtype as the model's layer does, with ``scale=1``) x mask, and per
     shape one bf16 causal case with unaligned rows (bf16 with aligned rows
-    and head_dim 64 or 128 runs the kernel's tensor-core form, everything
-    else its FMA form)."""
+    and head_dim 64, 128 or 256 runs the kernel's tensor-core form,
+    everything else its FMA form)."""
     dev = gen.device
     for B, H, KVH, S, D in shapes:
         q = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
@@ -66,7 +70,7 @@ def flash_cases(gen: torch.Generator, shapes=FLASH_SHAPES
                     qq, scale = (q / math.sqrt(D)).to(dtype), 1.0
                 else:
                     qq, scale = q.to(dtype), None
-                for mask, causal, window in FLASH_MASKS:
+                for mask, causal, window in masks:
                     label = (f"B{B} H{H} KVH{KVH} S{S} D{D} "
                              f"{str(dtype).split('.')[-1]} "
                              f"{'pre-scaled' if prescale else 'scale'} {mask}")

@@ -422,19 +422,23 @@ def test_cuda_stepwise_gru_layer_never_reaches_plain(cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("shape", [(2, 4, 4, 256, 64), (1, 32, 8, 1100, 128),
-                                   (2, 32, 8, 4096, 128)],
-                         ids=["S256-D64", "S1100-D128", "S4096-D128"])
+                                   (2, 32, 8, 4096, 128), (2, 4, 2, 300, 256),
+                                   (1, 16, 1, 1100, 256)],
+                         ids=["S256-D64", "S1100-D128", "S4096-D128",
+                              "S300-D256", "S1100-D256"])
 def test_flash_kernel_matches_plain(cuda, shape):
     """Kernel 5 against its plain version at its own tiles, on the shapes
     ``chip_smoke.py`` checks: float32 and bf16, its own scale and q
-    pre-scaled, causal / non-causal / window 64 (float32 within 2e-5 +
-    2e-5 |ref|, bf16 within 2 ulps of the row's largest |ref|)."""
+    pre-scaled, causal / non-causal / window 64, and at head_dim 256 also
+    a window of 300, whose edge falls inside a key tile (float32 within
+    2e-5 + 2e-5 |ref|, bf16 within 2 ulps of the row's largest |ref|)."""
     from repro_torch.kernels import flash_attention as KF
     from repro_torch.testing import attention_checks as AC
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
-    for label, kw in AC.flash_cases(gen, shapes=(shape,)):
+    masks = AC.FLASH_MASKS_D256 if shape[-1] == 256 else AC.FLASH_MASKS
+    for label, kw in AC.flash_cases(gen, shapes=(shape,), masks=masks):
         before = KF.launches
         got = KF.flash_attention(**kw)
         assert KF.launches == before + 1
@@ -442,7 +446,7 @@ def test_flash_kernel_matches_plain(cuda, shape):
             **kw, **KF.kernel_tiles(kw["q"], kw["k"], kw["v"])))
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_tensor_core_form_never_reaches_plain(cuda, monkeypatch, D):
     """The TMA + wgmma form of kernel 5 (bf16, aligned rows) on a ragged
     GQA prefill shape and on a strided view (q, k, v as slices of one

@@ -1,7 +1,7 @@
 """The port's integer RMSNorm, integer softmax and integer reciprocal
 multiplier against the JAX reference, bit for bit.
 
-These are the integer ops no model calls yet (ROADMAP Queue 1 item 10).
+These are the integer ops no model calls yet (ROADMAP Queue 1 item 8).
 Every case goes through the reference jitted (integer arithmetic is the
 same eagerly) and through the port's plain PyTorch version; outputs must
 be equal.  Cases: random rows, the int16 extremes, all-zero rows (with and

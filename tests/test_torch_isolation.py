@@ -31,7 +31,7 @@ PROBE = textwrap.dedent("""
               if m.split(".")[0] in ("jax", "jaxlib", "repro")
               and sys.modules[m] is not None]
     assert not leaked, leaked
-    print(len(names))
+    print(" ".join(names))
 """)
 
 
@@ -43,7 +43,11 @@ def test_port_imports_without_jax_or_reference():
         [sys.executable, "-c", PROBE.format(src=src, smoke=smoke)],
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every module was walked
+    walked = out.stdout.split()
+    assert len(walked) >= 20  # every module was walked
+    for name in ("layers.ssm", "layers.recurrent", "models.mamba",
+                 "models.recurrentgemma", "models.whisper"):
+        assert f"repro_torch.{name}" in walked, name
 
 
 def test_chip_smoke_fails_without_a_gpu_or_the_repo(tmp_path):
