@@ -6,6 +6,7 @@
     python3 chip_smoke.py --cell-times SRC TAG  # kernels 2 and 3 alone
     python3 chip_smoke.py --serve-times SRC TAG  # the served paths' rates
     python3 chip_smoke.py --families  # kernel 5 and [families] alone
+    python3 chip_smoke.py --moe  # kernel 5 and [moe] alone
 
 1. builds the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    each, in parallel, beside the header check of step 2) and prints the
@@ -41,7 +42,8 @@
    on 126 CTAs, the last holding one), unmasked and masked, each from the
    reset state and continued from the carried (nonzero) state, at the
    decode shape (T = 1) too, every case at B = 1, 4, 16 and 64 (which
-   passes through the kernel in two groups of rows at full width);
+   passes through the kernel in two groups of rows at full width; the
+   small-width variants at two widths and B = 1, 4 and 64);
 6. holds the GRU sequence kernel against its plain version in the same
    way: both GRU variants (noLN, LN) at small widths, then a full-width
    LN layer (d_in = H = 2048) and an LN layer at H = 1001, at T = 32 and
@@ -57,10 +59,11 @@
    own tiles (128 x 128 in the tensor-core form, 128 x 64 there at
    head_dim 256, 64 x 64 in the FMA form): (B, H, KVH, S, D) in {(2, 4,
    4, 256, 64), (1, 32, 8, 1100, 128), (2, 32, 8, 4096, 128), (2, 4, 2,
-   300, 256), (1, 16, 1, 1100, 256)} x float32/bf16 x (its own scale, or
-   q pre-scaled in its dtype as the model's layer does) x (causal,
-   non-causal, causal with window 64, and at head_dim 256 a window of 300
-   whose edge falls inside a key tile), and per shape a bf16 case with
+   300, 256), (1, 16, 1, 1100, 256), (2, 4, 2, 300, 112), (1, 64, 8, 2048,
+   112)} x float32/bf16 x (its own scale, or q pre-scaled in its dtype as
+   the model's layer does) x (causal, non-causal, causal with window 64,
+   and at head_dim 112 and 256 a window of 300 whose edge falls inside a
+   key tile), and per shape a bf16 case with
    unaligned rows (the kernel's FMA form; aligned bf16 runs on the tensor
    cores); float32 within 2e-5 + 2e-5 |ref|, bf16 within 2 ulps of the
    row's largest |ref|;
@@ -164,13 +167,26 @@
    CPU on the same weights, the last-token logits within 1 % of the row's
    largest |logit|, or 1.5 x the CPU's own spread between two summation
    orders of its products where that is wider (F7's rule);
+   then ``[moe]``: ``grok-1-314b`` (8 experts of 32768, top 2, 48 query
+   over 8 KV heads of 128) cut to 2 of its 64 layers and
+   ``kimi-k2-1t-a32b`` (384 experts of 2048, top 8, a shared expert; 64
+   query over 8 KV heads of 112) cut to its dense layer and 1 of its 60
+   MoE layers, at full width from a seed, one resident at a time: a
+   prefill of 1 x 2048 tokens through ``make_serve_fns`` launches kernel 5
+   exactly once a layer in its tensor-core form (head_dim 128, and 112)
+   and no other kernel, each launch within 2 bf16 ulps of its plain
+   version, the logits by F7, prompt tokens/s and kernel 5's share of the
+   device time; the static serves in bf16 and int8 (no kernel; kimi's
+   decode at B 4 has T k = 32 < 384 experts, so every routed assignment
+   drops and its shared expert alone acts, ROADMAP R9); the float32 smoke
+   configs and grok's 1-layer cut on the card against the CPU;
 11. times each kernel with CUDA events (L2 flushed, the card held busy while
    the host enqueues the call, so the span is device time) beside its plain
    version, its bound and, for the GEMM, torch._int_mm (at M <= 16, where
    it refuses, on x zero-padded to 32 rows under its own key) at every
    shape the main paths launch (for flash attention, at the qwen3-4b and
-   the recurrentgemma-9b prefill layers' shapes, the latter's bound
-   counting only the keys inside the window,
+   the recurrentgemma-9b and the kimi-k2-1t-a32b prefill layers' shapes,
+   recurrentgemma's bound counting only the keys inside the window,
    scaled_dot_product_attention; for kernels 2 and 3, the step
    entries and the TPU-contract entries at B 4, H 2048, beside the
    method's launch floor, and launches x (ms - bound) over the stepwise
@@ -182,12 +198,13 @@ Every launch counter is set to 0 just before each served path (the two
 static serves, the two float serves and the PTQ serves, the train runs,
 the stepwise pass,
 the two engine runs, the three fleet runs, the transformer's prefill and
-its two static serves, each prefill and static serve of ``[families]``)
+its two static serves, each prefill and static serve of ``[families]``
+and ``[moe]``)
 and read just after it; a kernel of the path that did not launch fails
 the run.  The kernels' JSON line counts each kernel's launches over the
 engine runs, the fleet runs and the stepwise pass (the GEMM's also by
-shape), and kernel 5's over the transformer's, recurrentgemma's and
-whisper's long prefills (by path too).  Each phase prints its
+shape), and kernel 5's over the transformer's, recurrentgemma's,
+whisper's and the MoE cuts' long prefills (by path too).  Each phase prints its
 seconds.
 
 ``--gemm-times SRC TAG`` builds and times kernel 1 alone (step 11's GEMM
@@ -200,7 +217,8 @@ host-clock rates of the static serves, the stepwise pass and the engine
 runs of steps 8-10, with the tokens each served (no checks).
 ``--families`` builds kernel 5 alone and runs its checks (step 7's), the
 ``[families]`` phase and its timings (step 11's), no other phase; results
-in ``chiprun_out/families.json``.
+in ``chiprun_out/families.json``; ``--moe`` the same with ``[moe]``
+(``chiprun_out/moe.json``).
 
 Any mismatch, build failure or launch error raises, and the script exits
 non-zero without the last line.  Without a CUDA device it fails at once.
@@ -287,6 +305,21 @@ FAMILY_CUTS = {"recurrentgemma-9b": dict(n_layers=3),  # rec, rec, attn
 FAMILY_CPU_B, FAMILY_CPU_S = 2, 8
 # kernel 5 at a recurrentgemma prefill layer: MQA, causal, window 2048
 FLASH_TIMED_D256 = dict(B=1, H=16, KVH=1, S=4096, D=256, window=2048)
+# the [moe] phase: the MoE family at full width, cut in depth (neither
+# model fits one card whole: 316 G and 1.03 T parameters), one resident at
+# a time: grok-1-314b at 2 of its 64 layers (its experts 9.7 GB a layer in
+# bf16), kimi-k2-1t-a32b at its dense layer and 1 of its 60 MoE layers (384
+# experts, 33.8 GB); a prefill of 1 x 2048 through make_serve_fns (kernel
+# 5 in every layer: head_dim 128 for grok, 112 for kimi), the static
+# serves, and the card against the CPU in float32 on the smoke configs and
+# on grok's 1-layer cut where the host holds its float32 weights twice
+MOE = ("grok-1-314b", "kimi-k2-1t-a32b")
+MOE_CUTS = {"grok-1-314b": dict(n_layers=2),
+            "kimi-k2-1t-a32b": dict(n_layers=2)}  # dense + 1 MoE layer
+MOE_PREFILL_B, MOE_PREFILL_S = 1, 2048
+MOE_CPU_CUT = ("grok-1-314b", dict(n_layers=1))
+# kernel 5 at a kimi prefill layer: GQA 64 over 8 KV heads of 112, causal
+FLASH_TIMED_D112 = dict(B=1, H=64, KVH=8, S=2048, D=112)
 
 
 def _gemm_timed():
@@ -525,8 +558,11 @@ def check_layer(what, arrays, spec, xs_q, vl_full, vl_next, t_next):
 
 
 # rows the sequence kernels are checked at; 64 passes in two groups at full
-# width
+# width.  The 16 LSTM variants at small widths take two widths and the
+# first, second and last of these (the check's depth cut to keep the whole
+# run inside its time limit)
 SCAN_BATCHES = (1, B, 16, 64)
+SCAN_SMALL = dict(widths=((10, 13, 6), (24, 40, 12)), batches=(1, B, 64))
 
 
 def batch_inputs(spec, xs, Bx, gen):
@@ -550,11 +586,12 @@ def batch_lens(base, Bx, dev):
     return torch.tensor(vals, dtype=torch.int32, device=dev)
 
 
-def check_layer_batches(what, arrays, spec, xs, full, nxt, t_next, gen):
-    """``check_layer`` at every batch size of ``SCAN_BATCHES``."""
+def check_layer_batches(what, arrays, spec, xs, full, nxt, t_next, gen,
+                        batches=SCAN_BATCHES):
+    """``check_layer`` at every batch size of ``batches``."""
     err = 0
     dev = xs.device
-    for Bx in SCAN_BATCHES:
+    for Bx in batches:
         xs_q = batch_inputs(spec, xs, Bx, gen)
         err = max(err, check_layer(f"{what} B={Bx}", arrays, spec, xs_q,
                                    batch_lens(full, Bx, dev),
@@ -570,15 +607,15 @@ def check_scan(dev):
     gen = torch.Generator(device=dev).manual_seed(17)
     err = 0
     for i, variant in enumerate(L.ALL_VARIANTS):
-        for d_in, H, d_proj in ((10, 13, 6), (24, 40, 12), (24, 48, 10)):
+        for d_in, H, d_proj in SCAN_SMALL["widths"]:
             arrays, spec, xs = quantized_layer(variant, d_in, H, d_proj, dev,
                                                seed=100 + i)
             err = max(err, check_layer_batches(
                 f"{variant.name} H={H}", arrays, spec, xs, (6, 3, 0, 1),
-                (2, 1, 0, 2), 2, gen))
-    log("[check] quant_lstm_scan: 16 variants x 3 widths x B in "
-        f"{SCAN_BATCHES}, from the reset and the carried state, plain and "
-        "masked, bit-exact vs plain")
+                (2, 1, 0, 2), 2, gen, SCAN_SMALL["batches"]))
+    log(f"[check] quant_lstm_scan: 16 variants x {len(SCAN_SMALL['widths'])} "
+        f"widths x B in {SCAN_SMALL['batches']}, from the reset and the "
+        "carried state, plain and masked, bit-exact vs plain")
     variant = L.LSTMVariant(use_layernorm=True, use_projection=True,
                             use_peephole=True)
     arrays, spec, xs = quantized_layer(variant, 333, 1001, 333, dev, seed=8,
@@ -1920,7 +1957,7 @@ def time_cell_kernels(dev, flush):
 def check_flash(dev):
     """Kernel 5 against its plain version at the kernel's own tiles: every
     shape x dtype x scaling x mask of ``attention_checks.flash_cases``, the
-    head_dim-256 shapes with their masks too (both forms: float32 and
+    head_dim-256 and head_dim-112 shapes with their masks too (both forms: float32 and
     unaligned rows take the FMA form) (float32: |d| <= 2e-5 + 2e-5 |ref|;
     bf16: 2 ulps of the row's largest |ref|).  Returns the largest
     |difference|."""
@@ -1932,7 +1969,8 @@ def check_flash(dev):
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
     cases = [AC.flash_cases(gen),
-             AC.flash_cases(gen, AC.FLASH_SHAPES_D256, AC.FLASH_MASKS_D256)]
+             AC.flash_cases(gen, AC.FLASH_SHAPES_D256, AC.FLASH_MASKS_D256),
+             AC.flash_cases(gen, AC.FLASH_SHAPES_D112, AC.FLASH_MASKS_D256)]
     for label, kw in (case for group in cases for case in group):
         got = FA.flash_attention(**kw)
         want = FA.flash_attention_plain(**kw, **FA.kernel_tiles(
@@ -1944,8 +1982,9 @@ def check_flash(dev):
     torch.cuda.synchronize()
     log(f"[check] flash_attention: {n} cases ({len(AC.FLASH_SHAPES)} shapes "
         "x float32/bf16 x own scale/pre-scaled q x causal/non-causal/"
-        f"window 64, and {len(AC.FLASH_SHAPES_D256)} head_dim-256 shapes "
-        "with a window of 300 besides) within tolerance of the plain "
+        f"window 64, and {len(AC.FLASH_SHAPES_D256)} head_dim-256 and "
+        f"{len(AC.FLASH_SHAPES_D112)} head_dim-112 shapes with a window of "
+        "300 besides) within tolerance of the plain "
         f"version; max |d| float32 {err[torch.float32]:.3g}, bf16 "
         f"{err[torch.bfloat16]:.3g}")
     return max(err.values())
@@ -2207,16 +2246,19 @@ def time_flash_at(dev, shape, flush, iters):
 
 def time_flash(dev):
     """Kernel 5 timed at a ``qwen3-4b`` prefill layer's shape (head_dim
-    128) and at a ``recurrentgemma-9b`` one's (head_dim 256, window 2048),
-    each in both forms (``time_flash_at``)."""
+    128), at a ``recurrentgemma-9b`` one's (head_dim 256, window 2048) and
+    at a ``kimi-k2-1t-a32b`` one's (head_dim 112), each in both forms
+    (``time_flash_at``)."""
     import torch
 
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
     return (time_flash_at(dev, FLASH_TIMED, flush, 10)
-            + time_flash_at(dev, FLASH_TIMED_D256, flush, 10))
+            + time_flash_at(dev, FLASH_TIMED_D256, flush, 10)
+            + time_flash_at(dev, FLASH_TIMED_D112, flush, 10))
 
 
-def family_prefill(dev, what, bundle, params, batch, n_flash, repeats):
+def family_prefill(dev, what, bundle, params, batch, n_flash, repeats,
+                   tag="families"):
     """One full-width prefill of ``batch`` through ``make_serve_fns``:
     kernel 5 launches exactly ``n_flash`` times (each launch held against
     the plain version at the kernel's tiles on that layer's inputs, 2 bf16
@@ -2291,7 +2333,7 @@ def family_prefill(dev, what, bundle, params, batch, n_flash, repeats):
                    logit_limit=limit, logit_err=AC.check_logits(
                        f"{what} last-token logits", logits, refs[0],
                        limit=limit))
-        log(f"[families] {what}: {n_flash} launches of kernel 5 (head_dim "
+        log(f"[{tag}] {what}: {n_flash} launches of kernel 5 (head_dim "
             f"{sorted(forms)[0][1]}, tensor cores), each within 2 bf16 ulps "
             f"of its plain version (largest |d| {max(layer_err):.3g}); "
             f"last-token logits within {out['logit_err']:.4f} of the "
@@ -2320,7 +2362,7 @@ def family_prefill(dev, what, bundle, params, batch, n_flash, repeats):
                            if device_ms else None}
         stages["profiled"] = time.perf_counter() - t1
     rates = out["prompt_tok_s"]
-    log(f"[families] {what}: prompt tokens/s median "
+    log(f"[{tag}] {what}: prompt tokens/s median "
         f"{rates[len(rates) // 2]:.1f} (min {rates[0]:.1f}, max "
         f"{rates[-1]:.1f}; host clock over {repeats} prefills), peak "
         f"{out['peak_gib']:.2f} GiB"
@@ -2470,6 +2512,116 @@ def families_full_width(dev):
         gc.collect()
         torch.cuda.empty_cache()
         log(f"[families] {name}: {out[name]['seconds']:.1f}s")
+    return out
+
+
+def moe_card_cpu(dev):
+    """The MoE models on the card against the CPU, float32 weights (TF32
+    off): each smoke config, and grok's 1-layer full-width cut where the
+    host holds its float32 weights twice over (they are counted first);
+    prefill of ``FAMILY_CPU_B x FAMILY_CPU_S`` tokens, the last-token
+    logits within ``float_checks.CARD_CPU_RTOL`` of the row's largest
+    |logit|, the argmax equal where the margin exceeds 2 %."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree_util as tu
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.runtime import train_loop
+    from repro_torch.testing import attention_checks as AC
+    from repro_torch.testing.float_checks import CARD_CPU_RTOL, params_to
+
+    name, cut = MOE_CPU_CUT
+    runs = [(f"{n} smoke", get_config(n, smoke=True)) for n in MOE]
+    full = dataclasses.replace(get_config(name), **cut)
+    need = 4 * transformer.param_count(full)
+    have = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
+    out = {"cut": {name: cut}, "cut_float32_bytes": need,
+           "host_available_bytes": have}
+    if 2 * need < have:
+        runs.append((f"{name} cut to {cut}", full))
+    else:
+        log(f"[moe] {name} cut to {cut}: its float32 weights take "
+            f"{need / 1e9:.1f} GB, the host has {have / 1e9:.1f} GB free: "
+            "not run")
+    for what, cfg in runs:
+        t0 = time.perf_counter()
+        bundle, params = serve.build_bundle(cfg, dev)
+        p32 = tu.tree_map(lambda t: t.float(), params)
+        del params
+        batch = family_batch(cfg, FAMILY_CPU_B, FAMILY_CPU_S, dev)
+        card, _ = train_loop.make_serve_fns(bundle, dev, FAMILY_CPU_B,
+                                            FAMILY_CPU_S)
+        on_cpu, _ = train_loop.make_serve_fns(bundle, "cpu", FAMILY_CPU_B,
+                                              FAMILY_CPU_S)
+        got = card(p32, batch).cpu()
+        p_cpu = params_to(p32, "cpu")
+        del p32
+        torch.cuda.empty_cache()
+        want = on_cpu(p_cpu, batch)
+        del p_cpu
+        err = AC.check_logits(f"{what} float32 card vs CPU", got, want,
+                              limit=CARD_CPU_RTOL)
+        out[what] = {"float32_logit_err": err,
+                     "float32_bytes": 4 * transformer.param_count(cfg),
+                     "seconds": time.perf_counter() - t0}
+        log(f"[moe] {what}, {FAMILY_CPU_B} x {FAMILY_CPU_S} tokens: float32 "
+            f"weights ({out[what]['float32_bytes'] / 1e9:.3f} GB on each "
+            f"device), the card's last-token logits within {err:.3g} of the "
+            f"row's largest |logit| of the CPU's (limit {CARD_CPU_RTOL}; "
+            f"{out[what]['seconds']:.1f}s)")
+    return out
+
+
+def moe_full_width(dev):
+    """``[moe]``: grok-1-314b and kimi-k2-1t-a32b at full width, cut in
+    depth (``MOE_CUTS``), from seeded weights, one resident on the card at
+    a time: a prefill of ``MOE_PREFILL_B x MOE_PREFILL_S`` through
+    ``make_serve_fns`` (kernel 5 once a layer in its tensor-core form, at
+    head_dim 128 and 112, each launch within 2 bf16 ulps of its plain
+    version, the logits by F7, and no other kernel; ``family_prefill``),
+    the static serves in bf16 and int8 (no kernel), then ``moe_card_cpu``."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import tree_util as tu
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+
+    out = {}
+    for name in MOE:
+        cfg = dataclasses.replace(get_config(name), **MOE_CUTS[name])
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        bundle, params = serve.build_bundle(cfg, dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tu.leaves(params))
+        log(f"[moe] {name} cut to {MOE_CUTS[name]} ({cfg.n_dense_layers} "
+            f"dense + {cfg.n_layers - cfg.n_dense_layers} MoE layers of "
+            f"{cfg.n_experts} experts, top {cfg.topk}): seeded init of "
+            f"{n_params / 1e9:.3f} B parameters on the card in "
+            f"{time.perf_counter() - t0:.2f}s, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        with torch.no_grad():
+            prefill = family_prefill(
+                dev, f"prefill {name} B={MOE_PREFILL_B} S={MOE_PREFILL_S}",
+                bundle, params, family_batch(cfg, MOE_PREFILL_B,
+                                             MOE_PREFILL_S, dev),
+                cfg.n_layers, FAMILY_REPEATS, tag="moe")
+        serves = serve_transformer_full_width(dev, (bundle, params))
+        del bundle, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = {"cut": MOE_CUTS[name], "n_params": n_params,
+                     "prefills": [prefill], "serves": serves,
+                     "seconds": time.perf_counter() - t0}
+        log(f"[moe] {name}: {out[name]['seconds']:.1f}s")
+    out["card_cpu"] = moe_card_cpu(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2671,6 +2823,42 @@ def families_only() -> int:
     return 0
 
 
+def moe_only() -> int:
+    """``--moe``: kernel 5 built and checked (every case of
+    ``check_flash``), the ``[moe]`` phase and kernel 5's timings, with no
+    other phase; results in ``chiprun_out/moe.json``."""
+    import torch
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+    phases = Phases()
+    log(f"[build] {build.build_all(['flash_attention'])}")
+    for line in build.build_log("flash_attention").splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            log(f"[build] flash_attention: {line.strip()}")
+    phases.done("build")
+    err = check_flash(dev)
+    phases.done("check flash_attention")
+    moe = moe_full_width(dev)
+    phases.done("moe")
+    flash = time_flash(dev)
+    phases.done("timing")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "moe.json"), "w") as f:
+        json.dump({"gpu": smi, "flash_max_abs_err": err, "moe": moe,
+                   "flash": flash, "phase_s": phases.seconds}, f, indent=1)
+    log(smi)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2680,6 +2868,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--families"]:
         return families_only()
+    if sys.argv[1:] == ["--moe"]:
+        return moe_only()
     if sys.argv[1:2] and sys.argv[1] in TIMES:
         if len(sys.argv) != 4:
             print(f"usage: chip_smoke.py {sys.argv[1]} SRC TAG",
@@ -2748,6 +2938,8 @@ def main() -> int:
     phases.done(f"serve {TRANSFORMER}")
     families = families_full_width(dev)
     phases.done("families")
+    moe = moe_full_width(dev)
+    phases.done("moe")
     gemm, scan, gru_scan, (cell, ln) = time_kernels(dev, lstm_layer,
                                                     gru_layer)
     flash = time_flash(dev)
@@ -2760,10 +2952,12 @@ def main() -> int:
     launches = {name: sum(e["launches"][name] for e in engines + fleet)
                 + stepwise["launches"][name] for name in stepwise["launches"]}
     # kernel 5's main paths: the long-prompt prefills of the transformer,
-    # of recurrentgemma and of whisper's decoder
+    # of recurrentgemma, of whisper's decoder and of the MoE models' cuts
     family_flash = {f"{p['arch']} B={p['batch']} S={p['seq']}":
                     p["launches"]["flash_attention"]
-                    for fam in families.values() for p in fam["prefills"]}
+                    for fam in list(families.values()) + [
+                        moe[name] for name in MOE]
+                    for p in fam["prefills"]}
     launches["flash_attention"] = prefill["launches"]["flash_attention"] \
         + sum(family_flash.values())
     gemm_by_shape = {}
@@ -2804,7 +2998,9 @@ def main() -> int:
                           err_flash, flash[0], "B=2 H=32 KVH=8 S=4096 D=128 "
                           "causal bf16, tensor-core form (a qwen3-4b "
                           "prefill layer; the head_dim-256 rows of a "
-                          "recurrentgemma-9b layer follow in shapes)",
+                          "recurrentgemma-9b layer and the head_dim-112 "
+                          "rows of a kimi-k2-1t-a32b layer follow in "
+                          "shapes)",
                           flash),
              launches_by_path=dict(
                  {f"{TRANSFORMER} B={PREFILL_B} S={PREFILL_S}":
@@ -2818,7 +3014,7 @@ def main() -> int:
                    "float": float_serves, "train": train,
                    "stepwise": stepwise, "prefill": prefill,
                    "transformer_serve": transformer_serve,
-                   "families": families,
+                   "families": families, "moe": moe,
                    "grid_barrier": barrier,
                    "batch": B, "prompt_len": T, "gen": GEN,
                    "phase_s": phases.seconds}, f, indent=1)

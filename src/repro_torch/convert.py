@@ -6,9 +6,9 @@ package:
 
 * ``params_from_numpy``: a reference param tree -> the port's params
   (bf16 stays bf16, float32 stays float32, int8 stays int8; nested dicts
-  keep their keys, so the transformer's stacked ``(L, ...)`` layer leaves
-  and its int8 ``{"q": (L, in, out), "s": (L, out)}`` leaves carry over
-  as they are);
+  keep their keys, so the transformer's stacked ``(L, ...)`` layer leaves,
+  an MoE model's ``dense_layers`` tree, its ``(L, E, in, out)`` expert
+  stacks and their int8 ``{"q", "s"}`` leaves carry over as they are);
 * ``opt_state_from_numpy``: the reference train step's optimizer state
   -> the port's (``runtime.train_loop.make_train_step`` keeps the same
   layout);

@@ -16,8 +16,8 @@
 // What bounds it on an H100: at the prefill shape (B 2, H 32, S 4096,
 // D 128, causal) operations, 2*B*H*S^2*D = 275 GFLOP against 168 MB of
 // q/k/v/o: 0.28 ms at the 989 TFLOP/s of the bf16 tensor cores.  Two forms:
-//  * the tensor-core form (bf16, D 64, 128 or 256, rows 16-byte aligned:
-//    every tensor the model passes; flash_wgmma_kernel), shaped after
+//  * the tensor-core form (bf16, D 64, 112, 128 or 256, rows 16-byte
+//    aligned: every tensor the model passes; flash_wgmma_kernel), shaped after
 //    FlashAttention-3.  One CTA of two warpgroups per (128-row q tile,
 //    head, batch); thread 0 issues TMA copies: the q tile once, then each
 //    K and V tile (128 keys; 64 at D 256, where the q tile and two stages
@@ -28,8 +28,10 @@
 //    one.  The tensor maps are 4-D (D, heads, S, B) over the tensors' own
 //    strides, so GQA and strided views are read in place; 128-byte
 //    swizzle, a 256-byte bf16 row taking two 64-column boxes; TMA fills
-//    rows past Sq or Sk with zeros.  Each warpgroup owns 64 q rows (with
-//    all of its 255 registers: a separate producer warpgroup, its
+//    rows past Sq or Sk with zeros, and at D 112 (kimi) columns 112-127 of
+//    the second box, so the tiles are D 128's (tiles::tc_padded): S takes
+//    D / 16 = 7 k-steps, P v the n128 product, and 112 columns are stored.
+//    Each warpgroup owns 64 q rows (with all of its 255 registers: a separate producer warpgroup, its
 //    registers handed over by setmaxnreg, measured slower, as did
 //    overlapping one tile's softmax with the next tile's products, which
 //    ptxas serializes: PERF.md): S = q k^T is wgmma m64n128k16 with both
@@ -45,7 +47,9 @@
 //  * the FMA form (float32, other head widths, unaligned rows) stages 64 x
 //    64 tiles as float32 and runs the products on the float32 FMA units
 //    (67 TFLOP/s), 256 threads each holding a 4 x 4 block of logits
-//    (flash_kernel); two CTAs an SM, one at D 256 (194 KB of tiles).
+//    (flash_kernel; a thread's output columns 4-wide where D is a multiple
+//    of 64, else strided by 16, as at D 16 and 112); two CTAs an SM, one at
+//    D 256 (194 KB of tiles).
 // Both skip the key tiles that the mask empties for every row of the q
 // tile (tiles::tile_range, exact; flash_tiles.cuh).
 #include <cuda.h>
@@ -110,7 +114,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
     flash_kernel(Args a) {
   using S = Smem<D>;
-  constexpr int kVec = D >= 64 ? 4 : 1;  // accumulator columns per group
+  constexpr int kVec = D % 64 == 0 ? 4 : 1;  // accumulator columns a group
   constexpr int kCols = D / 16;          // accumulator columns per thread
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -261,27 +265,30 @@ __global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
 }
 
 
-// ---- the tensor-core form (bf16, D = 64 or 128, 16-byte aligned rows) ----
+// ---- the tensor-core form (bf16, D 64, 112, 128 or 256, 16-byte aligned
+// rows) ----
 
 namespace tc {
 
-constexpr int kBQ = 128;      // q rows per CTA: 64 per consumer warpgroup
-constexpr int kStages = 2;    // K/V ring depth
+constexpr int kBQ = tiles::kTcBQ;  // q rows per CTA: 64 a consumer warpgroup
+constexpr int kStages = tiles::kTcStages;  // K/V ring depth
 constexpr int kConsumers = 2;  // warpgroups of 64 q rows
 constexpr int kThreads = 128 * kConsumers;
-constexpr int kBox = 64;      // bf16 columns per TMA box (128 bytes)
+constexpr int kBox = tiles::kTcBox;  // bf16 columns per TMA box (128 bytes)
 constexpr float kLog2e = 1.4426950408889634f;
 
-// tile byte sizes; a tile is D/64 column blocks of rows x 128 bytes, each
-// block 128-byte swizzled by TMA.  Keys per K/V tile: 128, or 64 at D 256,
-// where 128 would need 64 KB of q and 4 x 64 KB of K and V stages
+// tile byte sizes; a tile is Dp/64 column blocks of rows x 128 bytes (Dp
+// the padded width, tiles::tc_padded), each block 128-byte swizzled by TMA.
+// Keys per K/V tile: 128, or 64 at D 256 (tiles::tc_block_k)
 template <int D>
 struct Layout {
-  static constexpr int kBK = D > 128 ? 64 : 128;
-  static constexpr int kQ = kBQ * D * 2;
-  static constexpr int kKV = kBK * D * 2;
-  static constexpr size_t kBytes = kQ + 2 * kStages * kKV + 1024;  // + align
-  static_assert(kBytes <= 227 * 1024, "tiles exceed a block's shared memory");
+  static_assert(tiles::tc_width_ok(D), "not a tensor-core head width");
+  static constexpr int kDp = tiles::tc_padded(D);
+  static constexpr int kBK = tiles::tc_block_k(D);
+  static constexpr int kQ = kBQ * kDp * 2;
+  static constexpr int kKV = kBK * kDp * 2;
+  static constexpr size_t kBytes = tiles::tc_smem_bytes(D);
+  static_assert(kBytes == kQ + 2 * kStages * kKV + 1024, "layout");
 };
 
 struct Params {
@@ -499,9 +506,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, Params a) {
   using L = Layout<D>;
+  constexpr int kDp = L::kDp;    // the width the boxes and P v run at
   constexpr int kBK = L::kBK;    // keys per K/V tile
   constexpr int kS = kBK / 2;    // S accumulators a thread: 64 x kBK
-  constexpr int kCB = D / kBox;  // column blocks of a row
+  constexpr int kCB = kDp / kBox;  // column blocks of a row
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, bar_k[kStages], bar_v[kStages],
       bar_empty[kStages];
@@ -572,9 +580,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int qp_lo = q0 + wg * 64 + a.q_offset, qp_hi = qp_lo + 63;
     const float sl2 = a.scale_log2;
 
-    float o[D / 2];
+    float o[kDp / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kDp / 2; ++i) o[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
     mbar_wait(&bar_q, 0);
@@ -585,7 +593,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint8_t* Kt = Ks + s * L::kKV;
       const uint8_t* Vt = Vs + s * L::kKV;
 
-      // S = q k^T: 64 rows x kBK keys, D / 16 k-steps of 32 bytes each
+      // S = q k^T: 64 rows x kBK keys, D / 16 k-steps of 32 bytes each (the
+      // padded columns past D are never read)
       float sacc[kS];
 #pragma unroll
       for (int i2 = 0; i2 < kS; ++i2) sacc[i2] = 0.f;  // overwritten: scale_d 0
@@ -659,7 +668,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       m0 = n0;
       m1 = n1;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
+      for (int c = 0; c < kDp / 8; ++c) {
         o[4 * c] *= alpha0;
         o[4 * c + 1] *= alpha0;
         o[4 * c + 2] *= alpha1;
@@ -672,7 +681,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        wgmma_pv<D, kBK>(o, pa[kk], Vt + kk * 16 * 128);
+        wgmma_pv<kDp, kBK>(o, pa[kk], Vt + kk * 16 * 128);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -689,8 +698,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
     const int s0 = q0 + r0, s1 = s0 + 8;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < kDp / 8; ++c) {
       const int d = 8 * c + 2 * t4;
+      if (d >= D) continue;  // the padded columns (zeros) are not stored
       if (s0 < a.Sq)
         *reinterpret_cast<__nv_bfloat162*>(
             out + ((static_cast<size_t>(b) * a.Sq + s0) * a.H + h) * D + d) =
@@ -819,6 +829,7 @@ int launch_dim(const Args& a, int D, cudaStream_t stream) {
   switch (D) {
     case 16: return launch<T, 16>(a, stream);
     case 64: return launch<T, 64>(a, stream);
+    case 112: return launch<T, 112>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     case 256: return launch<T, 256>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -846,6 +857,7 @@ extern "C" int flash_attention_launch(
   if (dtype == 1 && rows_aligned(a)) {
     switch (D) {
       case 64: return tc::launch<64>(a, st);
+      case 112: return tc::launch<112>(a, st);
       case 128: return tc::launch<128>(a, st);
       case 256: return tc::launch<256>(a, st);
       default: break;

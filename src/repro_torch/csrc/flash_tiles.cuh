@@ -1,5 +1,7 @@
 // The tile classification of the flash-attention kernel (flash_attention.cu):
-// which key tiles a q tile visits, and which of those need the mask.
+// which key tiles a q tile visits, and which of those need the mask; and
+// the tensor-core form's plan of a head width (its key tiles, the padded
+// width its TMA boxes and P.v products run at, its shared memory).
 // Valid host C++ as well, so the rules are compiled and checked against a
 // brute-force mask without a GPU (tests/test_torch_kernel_plans_cuh.py).
 //
@@ -66,6 +68,38 @@ FT_HD bool tile_masked(const Mask& m, int qp_lo, int qp_hi, int k0, int bk) {
   const int k_last = k0 + bk - 1;
   return k_last >= m.Sk || (m.causal && k_last > qp_lo) ||
          (m.window > 0 && k0 <= qp_hi - m.window);
+}
+
+// ---- the tensor-core form's head-width plan ----
+//
+// A row of D bf16 values is read as 64-column TMA boxes (128 bytes, the
+// 128-byte swizzle's span).  A width that is not a multiple of 64 (kimi's
+// 112) is padded to the next one: the tensor map's D extent stays D, so
+// TMA fills columns D..Dp-1 of the last box with zeros.  q.k^T runs D / 16
+// k-steps (the padding never enters it); P.v runs on the padded width (for
+// 112 the D128 n128 product, (Dp - D) / (D + Dp) = 6.7 % of the form's
+// tensor-core work wasted) and only D columns are stored.
+
+constexpr int kTcBox = 64;   // bf16 columns a TMA box
+constexpr int kTcBQ = 128;   // q rows a CTA
+constexpr int kTcStages = 2;  // K/V ring depth
+
+// the width the boxes and P.v run at
+FT_HD constexpr int tc_padded(int D) { return (D + kTcBox - 1) / kTcBox * kTcBox; }
+// keys a K/V tile: 128, or 64 past D 128, where the q tile and two stages
+// of 128-key K and V tiles would need 320 KB of shared memory
+FT_HD constexpr int tc_block_k(int D) { return D > 128 ? 64 : 128; }
+// dynamic shared memory: the q tile, the K and V stages, 1 KB of alignment
+FT_HD constexpr int tc_smem_bytes(int D) {
+  return kTcBQ * tc_padded(D) * 2 +
+         2 * kTcStages * tc_block_k(D) * tc_padded(D) * 2 + 1024;
+}
+// a width the form is built for: k-steps of 16 columns cover D exactly,
+// P.v's accumulators fit one n128 or two (D 256), the tiles fit a block
+FT_HD constexpr bool tc_width_ok(int D) {
+  return D >= 16 && D % 16 == 0 && tc_padded(D) <= 256 &&
+         (tc_padded(D) == 64 || tc_padded(D) % 128 == 0) &&
+         tc_smem_bytes(D) <= 227 * 1024;
 }
 
 }  // namespace tiles

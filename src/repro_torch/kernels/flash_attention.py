@@ -19,10 +19,11 @@ reads KV head ``h // (H // KVH)`` in place).  Unlike the TPU kernel, any
 ``Sq``/``Sk`` is taken: the ragged tail of the last tile is masked.
 
 The kernel has two forms (``csrc/flash_attention.cu``): bf16 inputs with
-head_dim 64, 128 or 256 and rows aligned to 16 bytes (every tensor the
-model passes) run on the tensor cores (TMA loads into a ring of 128-key
-tiles, 64-key at head_dim 256, ``wgmma`` products, 128-row q tiles),
-everything else on the float32 FMA units (64 x 64 tiles).
+head_dim 64, 112, 128 or 256 and rows aligned to 16 bytes (every tensor
+the model passes) run on the tensor cores (TMA loads into a ring of
+128-key tiles, 64-key at head_dim 256, ``wgmma`` products, 128-row q
+tiles; head_dim 112 runs at 128, its last 16 columns zero), everything
+else on the float32 FMA units (64 x 64 tiles).
 ``kernel_tiles`` says which tiles a call runs at.
 
 ``scale`` defaults to ``1/sqrt(D)`` applied to the float32 logits, the TPU
@@ -50,8 +51,9 @@ NEG_INF = -1e30
 BLOCK_Q = 64  # the FMA form's tiles (rows of q, rows of k per step)
 BLOCK_K = 64
 TC_BLOCK_Q = 128  # the tensor-core form's tiles: q rows, and keys by head_dim
-TC_BLOCK_K = {64: 128, 128: 128, 256: 64}
-HEAD_DIMS = (16, 64, 128, 256)  # head widths the kernel is built for
+# keys a K/V tile by head_dim (``tiles::tc_block_k`` in csrc/flash_tiles.cuh)
+TC_BLOCK_K = {64: 128, 112: 128, 128: 128, 256: 64}
+HEAD_DIMS = (16, 64, 112, 128, 256)  # head widths the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # kernel launches since the last reset (plain calls not counted)
@@ -74,7 +76,7 @@ def _check_shapes(q, k, v):
 def tensor_core_form(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                      ) -> bool:
     """Does the CUDA kernel run these inputs in its tensor-core form?  bf16,
-    head_dim 64, 128 or 256, base addresses and batch/sequence/head strides
+    head_dim 64, 112, 128 or 256, base addresses and batch/sequence/head strides
     aligned to 16 bytes (what TMA needs to read the rows in place)."""
     if q.dtype != torch.bfloat16 or q.shape[-1] not in TC_BLOCK_K:
         return False

@@ -15,6 +15,8 @@ baseline, and the dense transformer family.
         [--quant int8] --batch 4 --prompt-len 32 --gen 16 --max-len 256
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \
         falcon-mamba-7b [--quant int8]   # or whisper-tiny, recurrentgemma-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \
+        --smoke --device cpu [--quant int8]   # or kimi-k2-1t-a32b
 
 Seeded float init, calibration and the Table-2 recipe, then either the
 static batch (ONE integer prefill over the prompt and a greedy decode
@@ -38,7 +40,9 @@ through the bundle's ``decode``, then greedy decoding.  That is a
 transformer (``--quant none``, the default, or ``int8``: int8 weights and
 an int8 KV cache, in a ``--max-len`` cache; decode never reaches the
 flash kernel, only a prefill of more than 1024 positions does,
-``runtime.train_loop.make_serve_fns``), whisper-tiny (frames of the
+``runtime.train_loop.make_serve_fns``; the MoE models grok-1-314b and
+kimi-k2-1t-a32b too, whose full-width weights no single card holds: the
+CLI refuses them there, ``check_fits``), whisper-tiny (frames of the
 frontend stub are not read in decode: its cross-attention cache stays
 zero, as in the reference), falcon-mamba-7b or recurrentgemma-9b (``int8``
 quantizes their weights; their recurrent state and recurrentgemma's
@@ -56,6 +60,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -64,7 +69,7 @@ import torch
 from ..configs.registry import get_config
 from ..kernels import (flash_attention, int8_matmul, int_layernorm,
                        quant_gru_scan, quant_lstm_cell, quant_lstm_scan)
-from ..models import lstm_lm, model_zoo, quant_transformer
+from ..models import lstm_lm, model_zoo, quant_transformer, transformer
 from ..runtime import sharding, train_loop
 from . import engine as E
 from . import fleet as F
@@ -207,7 +212,34 @@ def serve_bundle(bundle, params, prompt: torch.Tensor, n_gen: int,
         launches={k: v - counts0[k] for k, v in launch_counts().items()})
 
 
+def device_bytes(device: torch.device) -> int:
+    """The memory of ``device``: the card's, or the host's."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def check_fits(cfg, quant: str, device: torch.device) -> None:
+    """Refuse a transformer whose weights alone exceed ``device``'s memory
+    (grok-1-314b and kimi-k2-1t-a32b at full width: 316 G and 1.03 T
+    parameters), rather than run out of memory part way through the
+    init."""
+    if cfg.family not in ("dense", "vlm", "moe"):
+        return
+    n = transformer.param_count(cfg)
+    need = n * (1 if quant == "int8" else 2)  # int8 weights: at least
+    have = device_bytes(device)
+    if need > have:
+        raise SystemExit(
+            f"{cfg.name} holds {n / 1e9:.1f} G parameters: at least "
+            f"{need / 1e9:.1f} GB of weights at --quant {quant}, more than "
+            f"the {have / 1e9:.1f} GB of {device}.  Serve it with --smoke, "
+            f"or a cut of its depth (python3 chip_smoke.py --moe serves "
+            f"full-width cuts of the MoE models on one card)")
+
+
 def _serve_bundle_cli(args, cfg, device) -> None:
+    check_fits(cfg, args.quant, device)
     t0 = time.perf_counter()
     bundle, params = build_bundle(cfg, device, args.quant)
     _sync(device)

@@ -5,8 +5,9 @@ float32}`` with per-output-channel scales (symmetric max/127).  ``mm`` and
 friends dequantize inside the consumer, as the reference does: the int8
 weight is cast to the activation's dtype and the product runs as a plain
 matmul, the scale applied to its output.  The reference computes that
-product in XLA, outside any Pallas kernel.  The MoE ``expert_einsum`` is
-not ported yet.
+product in XLA, outside any Pallas kernel.  ``expert_einsum`` is the MoE
+layer's batched product over the experts, with per (expert, out-channel)
+scales.
 
 A bf16 product accumulates in float32 and rounds once.  On the card it
 runs on the bf16 tensor cores (``torch.matmul``).  On the CPU torch's bf16
@@ -38,6 +39,16 @@ def mm(x: torch.Tensor, w: QWeight) -> torch.Tensor:
     if is_quant(w):
         y = matmul(x, w["q"].to(x.dtype))
         return y * w["s"].to(x.dtype)
+    return matmul(x, w)
+
+
+def expert_einsum(x: torch.Tensor, w: QWeight) -> torch.Tensor:
+    """The batched expert product ``ecd,edf->ecf``: x ``(E, C, in)`` times
+    w ``(E, in, out)``, an int8 w dequantized inside with its ``(E, out)``
+    scales broadcast over the capacity axis."""
+    if is_quant(w):
+        y = matmul(x, w["q"].to(x.dtype))
+        return y * w["s"][:, None, :].to(x.dtype)
     return matmul(x, w)
 
 

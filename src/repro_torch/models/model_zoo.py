@@ -10,17 +10,19 @@
                                      -> decode cache
     decode(params, token, state)     -> (logits (B, vocab), state)
 
-for the ``dense`` and ``vlm`` families (``batch`` is ``{"tokens": (B, S)}``,
-plus ``"labels"`` for the loss and ``"frontend_embeds": (B, F, d)`` for the
-VLM stub), the ``lstm`` family (the float recurrent LM of every
+for the ``dense``, ``vlm`` and ``moe`` families (``batch`` is ``{"tokens":
+(B, S)}``, plus ``"labels"`` for the loss and ``"frontend_embeds": (B, F,
+d)`` for the VLM stub; the MoE models grok-1-314b and kimi-k2-1t-a32b
+serve, and their ``loss`` raises: MoE training is ROADMAP Queue 1 item 9),
+the ``lstm`` family (the float recurrent LM of every
 ``rnn_cell``: ``lstm-rnnt``, ``gru-rnnt``), ``encdec`` (whisper-tiny: the
 batch also holds ``"frontend_embeds": (B, N_FRAMES, d)``, the frontend
 stub's frames), ``ssm`` (falcon-mamba-7b) and ``hybrid``
 (recurrentgemma-9b, whose attention cache is clamped to its window).  Only
-the dense family's cache takes ``quantized`` (int8 K/V); the others keep
-their float state, as in the reference.  Params and state go to the card
-unless the caller passes another device.  The dry-run's ``input_specs`` is
-not ported; the MoE family raises (ROADMAP Queue 1 item 7).
+the transformer families' caches take ``quantized`` (int8 K/V); the others
+keep their float state, as in the reference.  Params and state go to the
+card unless the caller passes another device.  The dry-run's
+``input_specs`` is not ported (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from typing import Callable
 from ..configs.base import ArchConfig
 from . import lstm_lm, mamba, recurrentgemma, transformer, whisper
 
-PORTED = ("dense", "vlm", "lstm", "encdec", "ssm", "hybrid")
+PORTED = ("dense", "vlm", "moe", "lstm", "encdec", "ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -47,7 +49,7 @@ def build(cfg: ArchConfig) -> ModelBundle:
     if cfg.family not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ported: {', '.join(PORTED)}; ROADMAP Queue 1 item 7)")
+            f"(ported: {', '.join(PORTED)})")
     return _FAMILIES[cfg.family](cfg)
 
 
@@ -73,7 +75,6 @@ def _module_bundle(cfg: ArchConfig, mod, prefill, init_state
 
 
 def _dense(cfg: ArchConfig) -> ModelBundle:
-    transformer.check_dense(cfg)
     return _module_bundle(
         cfg, transformer,
         lambda p, b: transformer.prefill(
@@ -86,6 +87,7 @@ def _dense(cfg: ArchConfig) -> ModelBundle:
 _FAMILIES = {
     "dense": _dense,
     "vlm": _dense,
+    "moe": _dense,  # layers/moe.py on one device; its loss raises
     # one registration serves every cell: lstm_lm dispatches on
     # cfg.rnn_cell, as the reference's does
     "lstm": lambda cfg: _module_bundle(

@@ -4,8 +4,9 @@ Port of ``repro.models.quant_transformer``.  ``quantize_param_tree`` turns
 every large (>= 2-D, >= 16k-element) float weight of the whitelist into
 ``{"q": int8, "s": float32}``: symmetric max/127 per output channel (the
 scale reduces only the contraction axis, -2, so a stacked ``(L, in, out)``
-weight keeps its layer axis: ``{"q": (L, in, out), "s": (L, out)}``), and
-per row for the embedding.  ``quantize_bundle`` also asks for an int8
+weight keeps its layer axis: ``{"q": (L, in, out), "s": (L, out)}``, and
+an MoE expert stack its expert axis too: ``{"q": (L, E, in, out), "s":
+(L, E, out)}``), and per row for the embedding.  ``quantize_bundle`` also asks for an int8
 decode cache, which the dense family's takes (the recurrent families keep
 their float state, as in the reference).  The reference's ``quantize_specs`` mirrors logical sharding specs,
 which the port does not have.
@@ -47,10 +48,10 @@ def _should_quantize(path: str, leaf) -> bool:
 def _quantize(path: str, leaf: torch.Tensor):
     """One weight -> ``{"q", "s"}``.  The division is true division: the
     reference launcher runs this eagerly, outside jit.  A stack of layers
-    is quantized a layer at a time (the same values: each layer's scales
-    reduce its own contraction axis), so the float32 temporaries stay one
-    layer's size (a full-width mamba ``in_proj`` stack is 4.3 G
-    elements)."""
+    (or of experts) is quantized a matrix at a time (the same values: each
+    matrix's scales reduce its own contraction axis), so the float32
+    temporaries stay one matrix's size (a full-width mamba ``in_proj``
+    stack is 4.3 G elements, a kimi layer's experts 16.9 G)."""
     if leaf.dim() > 2:
         q = torch.empty(leaf.shape, dtype=torch.int8, device=leaf.device)
         s = torch.empty(leaf.shape[:-2] + leaf.shape[-1:],

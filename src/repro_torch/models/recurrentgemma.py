@@ -43,7 +43,6 @@ def _layer_counts(cfg: ArchConfig) -> Tuple[int, int]:
 def init_params(generator: torch.Generator, cfg: ArchConfig, device=None
                 ) -> Dict[str, Any]:
     """Random bf16 params from a seeded generator, placed on ``device``."""
-    T.check_dense(cfg)
     params: Dict[str, Any] = {}
     emb.embed_init(generator, cfg.vocab_size, cfg.d_model, params, device,
                    tie=cfg.tie_embeddings)

@@ -1,17 +1,20 @@
-"""Decoder-only dense transformer LM: init, forward, loss, prefill, decode.
+"""Decoder-only transformer LM: init, forward, loss, prefill, decode.
 
-Port of the dense path of ``repro.models.transformer`` (qwen3-4b,
+Port of ``repro.models.transformer``: the dense models (qwen3-4b,
 stablelm-1.6b, yi-34b, qwen1.5-0.5b and the VLM internvl2-2b with its
-patch-embedding stub prepended).  Params are a dict of tensors with the
-reference's layout: each per-layer weight is stacked on a leading
-``(n_layers, ...)`` axis under ``params["layers"]``, and ``_run_layers``
-walks the layers in a Python loop (views, no copies).  A quantized tree
+patch-embedding stub prepended) and the MoE models (grok-1-314b,
+kimi-k2-1t-a32b: ``layers/moe.py`` on one device, kimi's shared expert and
+its dense prefix).  Params are a dict of tensors with the reference's
+layout: each per-layer weight is stacked on a leading ``(n_layers, ...)``
+axis under ``params["layers"]`` (and the dense prefix's under
+``params["dense_layers"]``), and ``_run_layers`` walks the layers in a
+Python loop (views, no copies).  A quantized tree
 (``quant_transformer.quantize_param_tree``) runs through the same code.
 
 A prefill of S > 1024 tokens runs ``attention.flash_attention`` in every
 layer, which launches the hand-written CUDA kernel on the card; shorter
-ones run ``full_attention``.  MoE configs (``n_experts > 0``) are not
-ported yet (ROADMAP Queue 1).
+ones run ``full_attention``.  Training an MoE model (the reference's
+auxiliary load-balancing loss) is not ported (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..layers import attention as attn
 from ..layers import embedding as emb
+from ..layers import moe as moe_lib
 from ..layers import qmm
 from ..layers.common import dense_init, norm_apply, norm_init, rmsnorm
 from ..layers.mlp import mlp_apply, mlp_init
@@ -30,23 +34,19 @@ from ..layers.rotary import apply_rope
 FLASH_MIN_SEQ = 1024  # a forward of more positions than this runs flash
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    if cfg.n_experts > 0 or cfg.n_dense_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1: "
-            "layers/moe.py, qmm.expert_einsum)")
-
-
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
 
 
 def _layers_init(generator: torch.Generator, cfg: ArchConfig, device,
-                 n_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                 n_layers: Optional[int] = None, moe_layer: bool = False
+                 ) -> Dict[str, torch.Tensor]:
     """Every layer's weights, stacked on a leading ``(n_layers,)`` axis
     (``cfg.n_layers`` unless given: recurrentgemma stacks its attention
-    layers alone)."""
+    layers alone, an MoE model its dense prefix and its MoE layers apart).
+    An MoE layer holds the experts and, where the config has them, the
+    shared experts' MLP; a dense one the MLP of ``dense_d_ff or d_ff``."""
     L = (cfg.n_layers if n_layers is None else n_layers,)
     d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p: Dict[str, Any] = {}
@@ -63,20 +63,52 @@ def _layers_init(generator: torch.Generator, cfg: ArchConfig, device,
         for name in ("q_norm", "k_norm"):
             p[name] = torch.ones(L + (hd,), dtype=torch.bfloat16,
                                  device=device)
-    mlp_init(generator, d, cfg.d_ff, cfg.mlp_type, p, device=device, stack=L)
+    if moe_layer:
+        moe_lib.moe_init(generator, d, cfg.moe_d_ff, cfg.n_experts, p,
+                         device=device, stack=L)
+        if cfg.n_shared_experts:
+            mlp_init(generator, d, cfg.moe_d_ff * cfg.n_shared_experts,
+                     cfg.mlp_type, p, prefix="shared", device=device,
+                     stack=L)
+    else:
+        mlp_init(generator, d, cfg.dense_d_ff or cfg.d_ff, cfg.mlp_type, p,
+                 device=device, stack=L)
     return p
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig, device=None
                 ) -> Dict[str, Any]:
-    """Random bf16 params from a seeded generator, placed on ``device``."""
-    check_dense(cfg)
+    """Random bf16 params (the routers float32) from a seeded generator,
+    placed on ``device``."""
     params: Dict[str, Any] = {}
     emb.embed_init(generator, cfg.vocab_size, cfg.d_model, params, device,
                    tie=cfg.tie_embeddings)
     norm_init(cfg.norm_type, cfg.d_model, "norm_final", params, device=device)
-    params["layers"] = _layers_init(generator, cfg, device)
+    if cfg.n_dense_layers:
+        params["dense_layers"] = _layers_init(generator, cfg, device,
+                                              cfg.n_dense_layers)
+    params["layers"] = _layers_init(generator, cfg, device,
+                                    cfg.n_layers - cfg.n_dense_layers,
+                                    moe_layer=cfg.n_experts > 0)
     return params
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """The number of parameters ``init_params`` draws for ``cfg``, counted
+    from the config alone (nothing is allocated)."""
+    d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_norm = 2 if cfg.norm_type == "layernorm" else 1
+    n_mlp = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
+    attn = 2 * n_norm * d + 2 * d * H * hd + 2 * d * KVH * hd
+    attn += (H + 2 * KVH) * hd * cfg.qkv_bias + 2 * hd * cfg.qk_norm
+    dense = attn + n_mlp * d * (cfg.dense_d_ff or cfg.d_ff)
+    moe = (attn + d * cfg.n_experts + 3 * cfg.n_experts * d * cfg.moe_d_ff
+           + n_mlp * d * cfg.moe_d_ff * cfg.n_shared_experts)
+    n_main = cfg.n_layers - cfg.n_dense_layers
+    layers = cfg.n_dense_layers * dense + n_main * (
+        moe if cfg.n_experts else dense)
+    head = 0 if cfg.tie_embeddings else cfg.vocab_size * d
+    return cfg.vocab_size * d + head + n_norm * d + layers
 
 
 def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -145,39 +177,69 @@ def _attention_block(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     return qmm.mm(o.reshape(B, S, H * hd), p["wo"])
 
 
-def residual_mlp(p: Dict, cfg: ArchConfig, x, h, unrounded: bool = False):
-    """The second half of a block: ``x + h``, then the MLP on its norm,
-    added, in h's dtype.  The residual sum reaches the MLP's norm unrounded
-    and the residual stream rounded, as the jitted reference computes it:
-    XLA drops the bf16 rounding of a sum that is cast to float32, as a norm
-    casts its input (ROADMAP Queue 3, F6).  ``unrounded`` returns the
-    block's own sum unrounded too, in float32, for a model whose layers
-    the reference unrolls (the next norm reads it so; ``x`` may then be
-    such a sum)."""
+def ffn(p: Dict, cfg: ArchConfig, x, is_moe: bool = False):
+    """The block's feed-forward on its normed input x ``(B, S, d)``: the
+    MLP, or the MoE layer over the B * S tokens plus the shared experts'
+    MLP where the config has them.  The router reads x as rounded: the
+    normed tokens have other users, and the jitted reference keeps their
+    rounding (the smoke models' logits are equal bit for bit)."""
+    if not is_moe:
+        return mlp_apply(p, x, cfg.mlp_type)
+    B, S, d = x.shape
+    y = moe_lib.moe_apply_local(
+        p, x.reshape(B * S, d), n_experts=cfg.n_experts, topk=cfg.topk,
+        capacity_factor=cfg.capacity_factor).reshape(B, S, d)
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(p, x, cfg.mlp_type, prefix="shared")
+    return y
+
+
+def residual_mlp(p: Dict, cfg: ArchConfig, x, h, unrounded: bool = False,
+                 is_moe: bool = False):
+    """The second half of a block: ``x + h``, then the feed-forward
+    (``ffn``) on its norm, added, in h's dtype.  The residual sum reaches
+    the norm unrounded and the residual stream rounded, as the jitted
+    reference computes it: XLA drops the bf16 rounding of a sum that is
+    cast to float32, as a norm casts its input (ROADMAP Queue 3, F6).
+    ``unrounded`` returns the block's own sum unrounded too, in float32,
+    for a model whose layers the reference unrolls (the next norm reads it
+    so; ``x`` may then be such a sum)."""
     dt = h.dtype
     x2 = x.to(dt).float() + h.float()
-    y = mlp_apply(p, norm_apply(cfg.norm_type, x2, p, "norm_mlp").to(dt),
-                  cfg.mlp_type)
+    y = ffn(p, cfg, norm_apply(cfg.norm_type, x2, p, "norm_mlp").to(dt),
+            is_moe)
     if unrounded:
         return x2.to(dt).float() + y.float()
     return x2.to(dt) + y
 
 
-def _block(p: Dict, cfg: ArchConfig, x, positions, cache=None):
+def _block(p: Dict, cfg: ArchConfig, x, positions, cache=None,
+           is_moe: bool = False):
     h = _attention_block(p, cfg, norm_apply(cfg.norm_type, x, p, "norm_attn"),
                          positions, cache)
-    return residual_mlp(p, cfg, x, h)
+    return residual_mlp(p, cfg, x, h, is_moe=is_moe)
+
+
+def _stacks(cfg: ArchConfig):
+    """``(params key, cache key, layers, MoE?)`` of each stack in order:
+    the dense prefix, where the config has one, then the main stack."""
+    n_dense = cfg.n_dense_layers
+    out = [("dense_layers", "dense", n_dense, False)] if n_dense else []
+    return out + [("layers", "main", cfg.n_layers - n_dense,
+                   cfg.n_experts > 0)]
 
 
 def _run_layers(params, cfg: ArchConfig, x, positions,
                 caches: Optional[Dict] = None):
-    """The layers in order, one Python loop over the stacked weights."""
-    for i in range(cfg.n_layers):
-        cache = None
-        if caches is not None:
-            cache = {k: t[i] for k, t in caches["main"].items()}
-            cache["pos"] = caches["len"]
-        x = _block(layer_params(params["layers"], i), cfg, x, positions, cache)
+    """The layers in order, one Python loop over each stack's weights."""
+    for key, ckey, n, is_moe in _stacks(cfg):
+        for i in range(n):
+            cache = None
+            if caches is not None:
+                cache = {k: t[i] for k, t in caches[ckey].items()}
+                cache["pos"] = caches["len"]
+            x = _block(layer_params(params[key], i), cfg, x, positions,
+                       cache, is_moe)
     if caches is None:
         return x, None
     return x, dict(caches, len=caches["len"] + 1)
@@ -194,8 +256,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S_total, vocab).  ``frontend_embeds``
     (B, F, d) are prepended (VLM patch stub).  The reference also returns
-    the MoE auxiliary loss, which a dense model does not have."""
-    check_dense(cfg)
+    the MoE auxiliary loss, which only its training path computes."""
     x = _embed(params, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _run_layers(params, cfg, x, positions)
@@ -207,7 +268,13 @@ def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``{"tokens", "labels"}``
     and the VLM's ``"frontend_embeds"``, on the params' device), the
     frontend positions cut from the logits.  The reference adds ``0.01 *``
-    the MoE auxiliary loss, which is 0 for a dense model."""
+    the MoE auxiliary loss, which is 0 for a dense model; an MoE model's
+    training is not ported and raises."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training (the auxiliary load-balancing loss) is "
+            "not ported; it comes with the sharded train step (ROADMAP Queue "
+            "1 item 9): at full width it needs more than one card")
     frontend = batch.get("frontend_embeds")
     logits = forward(params, cfg, batch["tokens"], frontend_embeds=frontend)
     if frontend is not None:
@@ -224,18 +291,24 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, quantized: bool = False,
                       device=None) -> Dict[str, Any]:
     """Stacked per-layer K/V caches (bf16, or int8 with float16 scales per
-    (position, KV head)); ``len`` counts the positions written, a Python
-    int here (the reference's int32 scalar)."""
-    check_dense(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    (position, KV head)) of each stack (``"main"``, and ``"dense"`` for an
+    MoE model's dense prefix); ``len`` counts the positions written, a
+    Python int here (the reference's int32 scalar)."""
     kv_dtype = torch.int8 if quantized else dtype
-    c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
-         "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
-    if quantized:
-        for name in ("k_scale", "v_scale"):
-            c[name] = torch.ones(shape[:4], dtype=torch.float16,
-                                 device=device)
-    return {"main": c, "len": 0}
+
+    def mk(L):
+        shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+        if quantized:
+            for name in ("k_scale", "v_scale"):
+                c[name] = torch.ones(shape[:4], dtype=torch.float16,
+                                     device=device)
+        return c
+
+    cache = {ckey: mk(n) for _, ckey, n, _ in _stacks(cfg)}
+    cache["len"] = 0
+    return cache
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -244,7 +317,6 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     """Run the prompt, return the last position's logits (B, vocab).  The
     head runs on that position alone, which equals the last row of the
     full logits (the final norm is per position)."""
-    check_dense(cfg)
     x = _embed(params, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _run_layers(params, cfg, x, positions)

@@ -31,6 +31,10 @@ FLASH_MASKS = (("causal", True, 0), ("non-causal", False, 0),
 # head), with a window whose edge falls inside the 64-key tiles
 FLASH_SHAPES_D256 = ((2, 4, 2, 300, 256), (1, 16, 1, 1100, 256))
 FLASH_MASKS_D256 = FLASH_MASKS + (("causal window 300", True, 300),)
+# head_dim 112 (kimi's GQA layers: 64 query heads over 8 KV heads), the
+# tensor-core form reading 128 columns a row, the last 16 zero: a ragged
+# shape and kimi's prefill layer (both with the masks of head_dim 256)
+FLASH_SHAPES_D112 = ((2, 4, 2, 300, 112), (1, 64, 8, 2048, 112))
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -51,7 +55,7 @@ def flash_cases(gen: torch.Generator, shapes=FLASH_SHAPES, masks=FLASH_MASKS
     every shape x dtype x (the kernel's own scale, or q pre-scaled in its
     dtype as the model's layer does, with ``scale=1``) x mask, and per
     shape one bf16 causal case with unaligned rows (bf16 with aligned rows
-    and head_dim 64, 128 or 256 runs the kernel's tensor-core form,
+    and head_dim 64, 112, 128 or 256 runs the kernel's tensor-core form,
     everything else its FMA form)."""
     dev = gen.device
     for B, H, KVH, S, D in shapes:

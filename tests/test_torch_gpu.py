@@ -423,21 +423,25 @@ def test_cuda_stepwise_gru_layer_never_reaches_plain(cuda, monkeypatch):
 
 @pytest.mark.parametrize("shape", [(2, 4, 4, 256, 64), (1, 32, 8, 1100, 128),
                                    (2, 32, 8, 4096, 128), (2, 4, 2, 300, 256),
-                                   (1, 16, 1, 1100, 256)],
+                                   (1, 16, 1, 1100, 256), (2, 4, 2, 300, 112),
+                                   (1, 64, 8, 2048, 112)],
                          ids=["S256-D64", "S1100-D128", "S4096-D128",
-                              "S300-D256", "S1100-D256"])
+                              "S300-D256", "S1100-D256", "S300-D112",
+                              "S2048-D112"])
 def test_flash_kernel_matches_plain(cuda, shape):
     """Kernel 5 against its plain version at its own tiles, on the shapes
     ``chip_smoke.py`` checks: float32 and bf16, its own scale and q
-    pre-scaled, causal / non-causal / window 64, and at head_dim 256 also
-    a window of 300, whose edge falls inside a key tile (float32 within
-    2e-5 + 2e-5 |ref|, bf16 within 2 ulps of the row's largest |ref|)."""
+    pre-scaled, causal / non-causal / window 64, and at head_dim 112 and
+    256 also a window of 300, whose edge falls inside a key tile (float32
+    within 2e-5 + 2e-5 |ref|, bf16 within 2 ulps of the row's largest
+    |ref|)."""
     from repro_torch.kernels import flash_attention as KF
     from repro_torch.testing import attention_checks as AC
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
-    masks = AC.FLASH_MASKS_D256 if shape[-1] == 256 else AC.FLASH_MASKS
+    masks = (AC.FLASH_MASKS_D256 if shape[-1] in (112, 256)
+             else AC.FLASH_MASKS)
     for label, kw in AC.flash_cases(gen, shapes=(shape,), masks=masks):
         before = KF.launches
         got = KF.flash_attention(**kw)
@@ -446,7 +450,7 @@ def test_flash_kernel_matches_plain(cuda, shape):
             **kw, **KF.kernel_tiles(kw["q"], kw["k"], kw["v"])))
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 112, 128, 256])
 def test_flash_tensor_core_form_never_reaches_plain(cuda, monkeypatch, D):
     """The TMA + wgmma form of kernel 5 (bf16, aligned rows) on a ragged
     GQA prefill shape and on a strided view (q, k, v as slices of one
@@ -589,6 +593,43 @@ def test_cuda_transformer_prefill_never_reaches_plain(cuda, monkeypatch):
         assert KF.launches == before + launched
         assert logits.shape == (2, cfg.vocab_size)
         assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "kimi-k2-1t-a32b"])
+def test_moe_on_card(cuda, arch):
+    """The MoE smoke models on the card: a layer's output the same bits in
+    two runs (the combine adds in a fixed order, no atomics); the float32
+    model's prefill (TF32 off) within ``float_checks.CARD_CPU_RTOL`` of
+    the row's largest |logit| of the CPU's on the same weights; an int8
+    static serve launches no kernel."""
+    from repro_torch import tree_util as tu
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.layers import moe
+    from repro_torch.runtime import train_loop
+    from repro_torch.testing.attention_checks import check_logits
+    from repro_torch.testing.float_checks import CARD_CPU_RTOL, params_to
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True)
+    bundle, params = serve.build_bundle(cfg, cuda)
+    p = {k: v[0] for k, v in params["layers"].items()}
+    x = torch.randn((64, cfg.d_model), device=cuda).bfloat16()
+    kw = dict(n_experts=cfg.n_experts, topk=cfg.topk,
+              capacity_factor=cfg.capacity_factor)
+    assert torch.equal(moe.moe_apply_local(p, x, **kw),
+                       moe.moe_apply_local(p, x, **kw))
+    p32 = tu.tree_map(lambda t: t.float(), params)
+    toks = serve.random_prompt(cfg, 2, 16, cuda)
+    card, _ = train_loop.make_serve_fns(bundle, cuda, 2, 16)
+    host, _ = train_loop.make_serve_fns(bundle, "cpu", 2, 16)
+    check_logits(f"{arch} card vs CPU", card(p32, {"tokens": toks}).cpu(),
+                 host(params_to(p32, "cpu"), {"tokens": toks.cpu()}),
+                 limit=CARD_CPU_RTOL)
+    qb, qp = serve.build_bundle(cfg, cuda, "int8")
+    res = serve.serve_bundle(qb, qp, toks[:, :4], 3, 16, quantized_cache=True)
+    assert all(n == 0 for n in res.launches.values()), res.launches
+    assert res.tokens.shape == (2, 3)
 
 
 @pytest.mark.parametrize("arch", ["lstm-rnnt", "gru-rnnt"])

@@ -9,11 +9,17 @@ fixed-point header:
 
 * the tile classification is held against a brute-force mask over causal,
   sliding-window, ragged-Sk and ``q_offset`` shapes, at the tensor-core
-  form's tiles (128-row q tiles read by two 64-row warpgroups, 128 keys)
-  and the FMA form's (64 x 64): a skipped tile holds no attended pair and
-  is only skipped when every row of the q tile has a key (what makes the
-  skip exact), an unmasked tile holds only attended pairs, and a masked
-  one at least one pair that is not;
+  form's tiles (128-row q tiles read by two 64-row warpgroups, 128 keys,
+  and the key tiles the header picks at head_dim 112 and 256) and the FMA
+  form's (64 x 64): a skipped tile holds no attended pair and is only
+  skipped when every row of the q tile has a key (what makes the skip
+  exact), an unmasked tile holds only attended pairs, and a masked one at
+  least one pair that is not;
+* the tensor-core form's head-width plan: every width the wrapper sends
+  there (64, 112, 128, 256) pads to whole 64-column TMA boxes (112 to 128,
+  wasting 6.7 % of the form's tensor-core work), takes k-steps that cover
+  exactly its columns, fits a block's shared memory and has the key tile
+  the wrapper's ``kernel_tiles`` reports;
 * the partition (which the wrappers read from the built libraries, through
   ``kernels.scan_plan``) covers every hidden unit exactly once on at most
   one CTA per SM, fits every registered recurrent config at the batch
@@ -31,6 +37,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.models import lstm_lm  # noqa: E402
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
@@ -64,6 +71,28 @@ int main() {
           fwrite(&masked, 4, 1, stdout);
         }
     }
+  }
+  return 0;
+}
+"""
+
+WIDTHS_PROGRAM = r"""
+#include <cstdint>
+#include <cstdio>
+
+#include "flash_tiles.cuh"
+
+// in: n, then n head widths int32
+// out per width: padded, block_k, smem bytes, width_ok (int32)
+int main() {
+  int32_t n;
+  if (fread(&n, 4, 1, stdin) != 1) return 1;
+  for (int i = 0; i < n; ++i) {
+    int32_t D;
+    if (fread(&D, 4, 1, stdin) != 1) return 1;
+    const int32_t r[4] = {tiles::tc_padded(D), tiles::tc_block_k(D),
+                          tiles::tc_smem_bytes(D), tiles::tc_width_ok(D)};
+    fwrite(r, 4, 4, stdout);
   }
   return 0;
 }
@@ -123,12 +152,43 @@ MASKS = {
     "q_offset": [(64, 1100, 1, 0, 1036), (200, 300, 1, 0, 100),
                  (130, 700, 1, 128, 570), (100, 90, 1, 0, -50)],
 }
-TILINGS = {"tensor cores": (128, 128, 64), "FMA": (64, 64, 64)}
+TILINGS = {"tensor cores": (128, 128, 64), "FMA": (64, 64, 64),
+           "tensor cores D112": (128, FA.TC_BLOCK_K[112], 64),
+           "tensor cores D256": (128, FA.TC_BLOCK_K[256], 64)}
 
 
 @pytest.fixture(scope="module")
 def tiles_exe(tmp_path_factory):
     return _compile(tmp_path_factory, "flash_tiles", TILES_PROGRAM)
+
+
+@pytest.fixture(scope="module")
+def widths_exe(tmp_path_factory):
+    return _compile(tmp_path_factory, "flash_widths", WIDTHS_PROGRAM)
+
+
+def test_flash_head_width_plan(widths_exe):
+    """Every width the wrapper sends to the tensor-core form is one the
+    header builds: whole 64-column boxes (D <= Dp < D + 64), k-steps of 16
+    columns covering D exactly, at most 227 KB of shared memory, and the
+    key tile ``kernel_tiles`` reports; head_dim 112 runs at 128, its P.v
+    wasting (128 - 112) / (112 + 128) of the form's tensor-core work (the
+    q.k^T product takes 7 k-steps, no padding); widths off the 16-column
+    grid or past 256 are refused."""
+    widths = list(range(8, 321, 8)) + [100]
+    out = np.frombuffer(_run(widths_exe, [(D,) for D in widths]),
+                        np.int32).reshape(-1, 4)
+    plan = {D: tuple(int(v) for v in row) for D, row in zip(widths, out)}
+    for D in FA.TC_BLOCK_K:
+        padded, block_k, smem, ok = plan[D]
+        assert ok and padded % 64 == 0 and D <= padded < D + 64, (D, plan[D])
+        assert D % 16 == 0 and smem <= 227 * 1024, (D, plan[D])
+        assert block_k == FA.TC_BLOCK_K[D], (D, plan[D])
+        assert smem == 128 * padded * 2 + 2 * 2 * block_k * padded * 2 + 1024
+    assert plan[112][:2] == (128, 128) and plan[112][2] == plan[128][2]
+    assert abs((128 - 112) / (112 + 128) - 0.0667) < 1e-3
+    for D in (8, 100, 264, 320):
+        assert not plan[D][3], (D, plan[D])
 
 
 @pytest.mark.parametrize("tiling", sorted(TILINGS))

@@ -109,17 +109,18 @@ def quantized_pair(params, t_params):
     return jq, tq
 
 
-def check_decode(cfg, tcfg, jparams, tparams, toks, max_len, frames=None):
+def check_decode(cfg, tcfg, jparams, tparams, toks, max_len, frames=None,
+                 quantized=False):
     """Teacher-force ``toks`` through both packages' ``decode`` (the
-    reference's jitted) from fresh states of ``max_len``: every step's
-    logits by the whole-model rule.  Returns the port's last logits and
+    reference's jitted) from fresh states of ``max_len`` (int8 KV caches
+    with ``quantized``): every step's logits by the whole-model rule.  Returns the port's last logits and
     the reference's prefill logits of the same prompt (with ``frames``
     for the enc-dec family)."""
     jb, tb = JZ.build(cfg), TZ.build(tcfg)
     B = toks.shape[0]
     decode = jax.jit(lambda p, tk, s: jb.decode(p, tk, s, NO_CONSTRAIN))
-    j_state = jb.init_state(B, max_len)
-    t_state = tb.init_state(B, max_len, device="cpu")
+    j_state = jb.init_state(B, max_len, quantized=quantized)
+    t_state = tb.init_state(B, max_len, quantized=quantized, device="cpu")
     for step in range(toks.shape[1]):
         tok = toks[:, step:step + 1]
         j_logits, j_state = decode(jparams, jnp.asarray(tok), j_state)
