@@ -7,8 +7,10 @@
     python3 chip_smoke.py --serve-times SRC TAG  # the served paths' rates
     python3 chip_smoke.py --families  # kernel 5 and [families] alone
     python3 chip_smoke.py --moe  # kernel 5 and [moe] alone
+    python3 chip_smoke.py --train  # the flash backward and training past S 1024
+    python3 chip_smoke.py --flash-digests SRC TAG  # kernel 5's outputs' hashes
 
-1. builds the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+1. builds the seven CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    each, in parallel, beside the header check of step 2) and prints the
    build seconds and ptxas resource lines;
 2. holds the kernels' fixed-point header, compiled for the card, against
@@ -98,9 +100,31 @@
    device's busy share of a profiled step; PTQ of the trained params
    against their float serve, reported), 4 QAT steps, 2 full-width
    ``gru-rnnt`` steps (no kernel may launch), a 2-layer cut's step on the
-   card against the CPU, kernel 5 refusing to run under autograd, and a
-   ``qwen1.5-0.5b`` smoke step on the card against the CPU
-   (``testing/train_checks.py``);
+   card against the CPU, the attention layer under autograd on the card
+   (kernel 5 writing its row log-sum-exp, then the flash backward kernel)
+   against the CPU in float32, and a ``qwen1.5-0.5b`` smoke step on the
+   card against the CPU (``testing/train_checks.py``); then training past
+   S 1024 (``train_attention``): the flash backward kernel against its
+   plain version (its dk/dv kernel unsplit and at the card's head
+   splits), and kernel 5's lse against its plain version's, at the
+   training layers of qwen3-4b (B 1, H 32 over 8 KV heads, S 4096, D 128,
+   bf16), recurrentgemma-9b (H 16 over 1, D 256, window 2048),
+   stablelm-1.6b (H 32, D 64, S 2048) and kimi-k2-1t-a32b (H 64 over 8, D
+   112, S 2048), and at small float32 and bf16 cases (head_dim 16, Sq !=
+   Sk at an offset, windows, ragged lengths, strided and unaligned rows;
+   ``attention_checks.FLASH_BWD_*_CASES``: float32 within 2e-5 + 2e-5
+   |ref|, bf16 within 2 ulps of the row's largest |ref|, a row's largest
+   taken as at least 2**-12 of the tensor's); full-width qwen3-4b through
+   ``launch/train.py`` at B 1 x S 4096, 3 AdamW steps with per-layer
+   remat and donated buffers (kernel 5 exactly 72 and the backward 36
+   times a step, no other kernel; every loss and grad norm finite; peak
+   device memory), then one more step under the profiler (the device time
+   of kernel 5, of the backward, of the GEMMs and of the rest, and the
+   busy share); recurrentgemma-9b cut to (rec, rec, attn) at B 1 x S
+   3072 (its window binds) and grok-1-314b cut to 1 layer at B 1 x S 2048
+   (Adafactor, auxiliary loss > 0), one step each at full width; float32
+   smoke steps of qwen1.5-0.5b and grok-1-314b at S 1100 on the card
+   against the CPU (loss and grad norm within 1e-4);
 9. runs a 4 x 32 prompt through all 10 layers of full-width ``lstm-rnnt``
    with the stepwise executor (``quantize_input -> stepwise ->
    dequantize_output``): the cell kernel must launch exactly 10 x 32
@@ -187,6 +211,8 @@
    shape the main paths launch (for flash attention, at the qwen3-4b and
    the recurrentgemma-9b and the kimi-k2-1t-a32b prefill layers' shapes,
    recurrentgemma's bound counting only the keys inside the window,
+   scaled_dot_product_attention; the flash backward at the qwen3-4b and
+   recurrentgemma-9b training layers, beside the backward of
    scaled_dot_product_attention; for kernels 2 and 3, the step
    entries and the TPU-contract entries at B 4, H 2048, beside the
    method's launch floor, and launches x (ms - bound) over the stepwise
@@ -203,8 +229,9 @@ and ``[moe]``)
 and read just after it; a kernel of the path that did not launch fails
 the run.  The kernels' JSON line counts each kernel's launches over the
 engine runs, the fleet runs and the stepwise pass (the GEMM's also by
-shape), and kernel 5's over the transformer's, recurrentgemma's,
-whisper's and the MoE cuts' long prefills (by path too).  Each phase prints its
+shape), kernel 5's over the transformer's, recurrentgemma's,
+whisper's and the MoE cuts' long prefills and the training runs past S
+1024 (by path too), and the flash backward's over those training runs.  Each phase prints its
 seconds.
 
 ``--gemm-times SRC TAG`` builds and times kernel 1 alone (step 11's GEMM
@@ -218,7 +245,12 @@ runs of steps 8-10, with the tokens each served (no checks).
 ``--families`` builds kernel 5 alone and runs its checks (step 7's), the
 ``[families]`` phase and its timings (step 11's), no other phase; results
 in ``chiprun_out/families.json``; ``--moe`` the same with ``[moe]``
-(``chiprun_out/moe.json``).
+(``chiprun_out/moe.json``); ``--train`` builds kernel 5 and the flash
+backward and runs ``train_attention`` and the backward's timings alone
+(``chiprun_out/train.json``).  ``--flash-digests SRC TAG`` builds kernel 5
+from the port under ``SRC`` and writes the SHA-256 of its output on every
+case of step 7's check to ``chiprun_out/flash_digests_TAG.json``: two
+revisions run in one call are equal bit for bit where their hashes are.
 
 Any mismatch, build failure or launch error raises, and the script exits
 non-zero without the last line.  Without a CUDA device it fails at once.
@@ -290,6 +322,20 @@ TRAIN_PROF_T = 16
 TRAIN_QAT_STEPS, TRAIN_GRU_STEPS = 4, 2
 TRAIN_CPU = dict(n_layers=2, B=2, T=16)
 TRAIN_DENSE, TRAIN_DENSE_S = "qwen1.5-0.5b", 64
+# [train]'s attention families past S 1024: the flash backward kernel
+# against its plain version (attention_checks.FLASH_BWD_*_CASES),
+# full-width qwen3-4b through the train CLI (remat, AdamW, donated
+# buffers), recurrentgemma-9b cut to (rec, rec, attn) at an S where its
+# window binds, grok-1-314b cut to one MoE layer (Adafactor, the aux loss),
+# and float32 smoke steps past S 1024 on the card against the CPU
+TRAIN_LM, TRAIN_LM_B, TRAIN_LM_S, TRAIN_LM_STEPS = "qwen3-4b", 1, 4096, 3
+TRAIN_CUTS = (("recurrentgemma-9b", dict(n_layers=3), 1, 3072),
+              ("grok-1-314b", dict(n_layers=1), 1, 2048))
+TRAIN_F32 = (("qwen1.5-0.5b", 1, 1100), ("grok-1-314b", 1, 1100))
+# the backward timed at a qwen3-4b training layer (causal, bf16) and a
+# recurrentgemma-9b one (MQA, window 2048)
+FLASH_BWD_TIMED = (dict(B=1, H=32, KVH=8, S=4096, D=128),
+                   dict(B=1, H=16, KVH=1, S=4096, D=256, window=2048))
 # the [families] phase: the three other model families that fit one card,
 # at full width, one resident at a time: a long prefill through
 # make_serve_fns (recurrentgemma's 12 window-2048 attention layers run
@@ -1284,9 +1330,10 @@ def train_full_width(dev):
     vocabulary; (c) ``TRAIN_GRU_STEPS`` float steps of full-width
     gru-rnnt; (d) one step of full-width lstm-rnnt cut to
     ``TRAIN_CPU["n_layers"]`` layers on the card against the CPU
-    (``testing/train_checks.py``); (e) kernel 5 refuses to run under
-    autograd; (f) one step of ``TRAIN_DENSE`` at smoke width, S
-    ``TRAIN_DENSE_S``, on the card against the CPU."""
+    (``testing/train_checks.py``); (e) the attention layer under autograd
+    on the card (kernel 5, then the backward kernel) against the CPU; (f)
+    one step of ``TRAIN_DENSE`` at smoke width, S ``TRAIN_DENSE_S``, on the
+    card against the CPU; then ``train_attention``."""
     import dataclasses
     import tempfile
 
@@ -1423,10 +1470,12 @@ def train_full_width(dev):
     out["card_vs_cpu"] = cmp
     del params
 
-    # (e) kernel 5 under autograd
-    out["flash_refusal"] = TC.flash_refuses_grad(dev)
-    log(f"[train] flash_attention on CUDA tensors that require grad "
-        f"raises: {out['flash_refusal']!r}")
+    # (e) the attention layer under autograd: kernel 5 and the backward
+    out["flash_grad_card_vs_cpu"] = TC.flash_grad_card_against_cpu(dev)
+    log(f"[train] flash attention under autograd (float32, B 1 S 1100 H 8 "
+        f"KVH 2 D 128): kernel 5 and the backward kernel once each, the "
+        f"output and gradients against the CPU's, max |d| "
+        f"{out['flash_grad_card_vs_cpu']}")
 
     # (f) the dense transformer's step
     dcfg = get_config(TRAIN_DENSE, smoke=True)
@@ -1441,6 +1490,264 @@ def train_full_width(dev):
         f"against the CPU: loss relative {cmp['loss_rel']:.3g}, grad_norm "
         f"relative {cmp['grad_norm_rel']:.3g} (limit {TC.BF16_RTOL})")
     out["dense_card_vs_cpu"] = cmp
+    del params
+    out["attention"] = train_attention(dev)
+    return out
+
+
+def check_flash_bwd_cases(dev):
+    """The flash backward kernel against its plain version, and kernel 5's
+    lse against its plain version's, at every case of
+    ``attention_checks.FLASH_BWD_MODEL_CASES`` and ``FLASH_BWD_SMALL_CASES``
+    (``attention_checks.check_flash_bwd``: float32 within 2e-5 + 2e-5
+    |ref|, bf16 within 2 ulps of the row's largest |ref|, the lse by the
+    float32 rule).  Returns the largest |d| of the lse and of the
+    gradients by dtype."""
+    import torch
+    from repro_torch.testing import attention_checks as AC
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {"lse": 0.0, "float32": 0.0, "bfloat16": 0.0}
+    for case in AC.FLASH_BWD_MODEL_CASES + AC.FLASH_BWD_SMALL_CASES:
+        label, B_, Sq, Sk, H, KVH, D, causal, window, q_offset, dtype, \
+            layout = case
+        t0 = time.perf_counter()
+        kw = AC.flash_bwd_inputs(gen, case)
+        lse_err, grad_err = AC.check_flash_bwd(label, **kw)
+        torch.cuda.synchronize()
+        dt = str(dtype).split(".")[-1]
+        out["lse"] = max(out["lse"], lse_err)
+        out[dt] = max(out[dt], grad_err)
+        log(f"[train] flash backward {label} (B {B_} Sq {Sq} Sk {Sk} H {H} "
+            f"KVH {KVH} D {D} causal {causal} window {window} q_offset "
+            f"{q_offset} {dt} {layout}): lse max|d| {lse_err:.3g}, dq/dk/dv "
+            f"max|d| {grad_err:.3g}, within tolerance of the plain versions "
+            f"({time.perf_counter() - t0:.1f}s)")
+        del kw
+    return out
+
+
+def _finite_run(what, losses, grad_norms):
+    if not all(math.isfinite(v) for v in list(losses) + list(grad_norms)):
+        raise AssertionError(f"{what}: a loss or grad norm is not finite: "
+                             f"{losses} {grad_norms}")
+
+
+def _expected_flash(cfg, n_attn, steps=1):
+    """Launches of kernel 5 and of the backward over ``steps`` train
+    steps of a model with ``n_attn`` attention layers past S 1024: each
+    layer's forward once, again in the backward where the model recomputes
+    its layers (the transformer's remat), and the backward once."""
+    from repro_torch.models import transformer
+
+    remat = cfg.family in ("dense", "vlm", "moe") and \
+        transformer.remat_of(cfg, True)
+    return {"flash_attention": n_attn * (2 if remat else 1) * steps,
+            "flash_attention_bwd": n_attn * steps}
+
+
+# the device time of a train step by kind of kernel (a kernel's name holds
+# one of its group's words; the first group that matches takes it)
+STEP_GROUPS = (
+    ("flash forward (kernel 5)", ("flash_kernel", "flash_wgmma_kernel")),
+    ("flash backward", ("delta_kernel", "dkdv_kernel", "dkdv_sum_kernel",
+                        "dq_kernel")),
+    ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+)
+
+
+def profile_train_step(res, step):
+    """One more step of a train CLI run's ``res`` (its step, params,
+    optimizer state and data) under ``torch.profiler``: the device ms of
+    each ``STEP_GROUPS`` group and of the rest, their launches, and the
+    busy share, the device ms over the wall seconds of the same step
+    unprofiled (the median of the run's steps after the first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = res.data.batch_at(step)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res.params, res.opt_state, m = res.art.step_fn(
+            res.params, res.opt_state, batch)
+        torch.cuda.synchronize()
+        prof_wall_s = time.perf_counter() - t0
+    _finite_run("profiled step", [float(m["loss"])], [float(m["grad_norm"])])
+    groups = {name: {"ms": 0.0, "launches": 0} for name, _ in STEP_GROUPS}
+    groups["other"] = {"ms": 0.0, "launches": 0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((g for g, words in STEP_GROUPS
+                     if any(w in e.key for w in words)), "other")
+        groups[name]["ms"] += e.self_device_time_total / 1e3
+        groups[name]["launches"] += e.count
+    busy_ms = sum(g["ms"] for g in groups.values())
+    others = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                     for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not any(w in e.key for _, words in STEP_GROUPS
+                                 for w in words)), reverse=True)[:8]
+    steady = sorted(res.step_s[1:])
+    wall_s = steady[len(steady) // 2]
+    share = busy_ms / 1e3 / wall_s if busy_ms > 0 else None
+    log(f"[train] a profiled step: device busy {busy_ms:.1f} ms of the "
+        f"unprofiled step's {wall_s * 1e3:.1f} ms (busy share {share}; "
+        f"{prof_wall_s * 1e3:.1f} ms under the profiler); by kernel: "
+        + ", ".join(f"{g} {v['ms']:.1f} ms in {v['launches']} launches"
+                    for g, v in groups.items())
+        + "; the most of the rest: " + "; ".join(
+            f"{ms:.1f} ms in {n} x {name[:90]}" for ms, n, name in others))
+    return {"groups": groups, "busy_ms": busy_ms, "step_wall_s": wall_s,
+            "busy_share": share, "profiled_wall_s": prof_wall_s,
+            "top_other": [{"ms": ms, "launches": n, "kernel": name}
+                          for ms, n, name in others]}
+
+
+def train_attention(dev):
+    """[train]'s attention families past S 1024.  (a)
+    ``check_flash_bwd_cases``;
+    (b) full-width ``TRAIN_LM`` through ``launch/train.py`` at B
+    ``TRAIN_LM_B`` x S ``TRAIN_LM_S``, ``TRAIN_LM_STEPS`` AdamW steps with
+    per-layer remat: every loss and grad norm finite, kernel 5 launched
+    twice a layer a step (forward and recompute) and the backward once,
+    no other kernel; peak device memory; (c), (d) one step of each of
+    ``TRAIN_CUTS`` (full width, cut in depth; the model's optimizer,
+    donated buffers): finite, the launches as (b) counts them, grok's
+    auxiliary loss positive; (e) float32 steps of ``TRAIN_F32`` (smoke
+    width) on the card against the CPU (``train_checks``' float32 rule)."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import tree_util as tu
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo, recurrentgemma, transformer
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.runtime.train_loop import make_train_step
+    from repro_torch.testing import train_checks as TC
+
+    out = {"check": check_flash_bwd_cases(dev)}
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        serve.reset_launch_counts()
+        return torch.cuda.memory_allocated()
+
+    # (b) the dense transformer at full width through the train CLI
+    cfg = get_config(TRAIN_LM)
+    held = fresh()
+    t0 = time.perf_counter()
+    res = _train_cli("--arch", TRAIN_LM, "--steps", str(TRAIN_LM_STEPS),
+                     "--batch", str(TRAIN_LM_B), "--seq", str(TRAIN_LM_S))
+    wall = time.perf_counter() - t0
+    counts = serve.launch_counts()
+    expect = {name: 0 for name in serve.KERNELS}
+    expect.update(_expected_flash(cfg, cfg.n_layers, TRAIN_LM_STEPS))
+    path_launches(f"train {TRAIN_LM}", counts, expect)
+    _finite_run(TRAIN_LM, res.losses, res.grad_norms)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = transformer.param_count(cfg)
+    steady = sorted(res.step_s[1:])
+    log(f"[train] {TRAIN_LM} full width ({n_params / 1e9:.3f} B parameters, "
+        f"remat {cfg.remat!r}, {cfg.optimizer}) B {TRAIN_LM_B} x S "
+        f"{TRAIN_LM_S}, {TRAIN_LM_STEPS} steps through launch/train.py: "
+        f"losses {res.losses}, grad norms {res.grad_norms}; step seconds "
+        f"{res.step_s} (host clock); a step launches kernel 5 "
+        f"{counts['flash_attention'] // TRAIN_LM_STEPS} times and the "
+        f"backward {counts['flash_attention_bwd'] // TRAIN_LM_STEPS}; peak "
+        f"device memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB; "
+        f"{held / 2**30:.2f} GiB held before the run); {wall:.1f}s")
+    out[TRAIN_LM] = {"batch": TRAIN_LM_B, "seq": TRAIN_LM_S,
+                     "n_params": n_params, "losses": res.losses,
+                     "grad_norms": res.grad_norms, "step_s": res.step_s,
+                     "median_step_s": steady[len(steady) // 2],
+                     "launches": counts,
+                     "launches_per_step": {
+                         k: v // TRAIN_LM_STEPS for k, v in counts.items()},
+                     "peak_mem_bytes": peak, "held_before_bytes": held,
+                     "seconds": wall}
+    out[TRAIN_LM]["profile"] = profile_train_step(res, TRAIN_LM_STEPS)
+    del res
+
+    # (c), (d) the hybrid and the MoE model, cut in depth
+    for name, cut, B_, S in TRAIN_CUTS:
+        cfg = dataclasses.replace(get_config(name), **cut)
+        held = fresh()
+        t0 = time.perf_counter()
+        bundle, params = serve.build_bundle(cfg, dev)
+        n_params = sum(t.numel() for t in tu.leaves(params))
+        art = make_train_step(bundle, dev, OptConfig(
+            name=cfg.optimizer, lr=TRAIN_LR, warmup_steps=1, total_steps=10),
+            donate=True)
+        opt = art.init_opt(params)
+        batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                       global_batch=B_)).batch_at(0)
+        aux = None
+        if cfg.n_experts:
+            with torch.no_grad():
+                aux = float(transformer._forward(
+                    params, cfg, torch.as_tensor(batch["tokens"], device=dev),
+                    None, True)[1])
+            if not aux > 0:
+                raise AssertionError(f"{name}: auxiliary loss {aux}")
+        serve.reset_launch_counts()
+        params, opt, m = art.step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        counts = serve.launch_counts()
+        n_attn = (recurrentgemma._layer_counts(cfg)[1]
+                  if cfg.family == "hybrid" else cfg.n_layers)
+        expect = {k: 0 for k in serve.KERNELS}
+        expect.update(_expected_flash(cfg, n_attn))
+        path_launches(f"train {name} cut", counts, expect)
+        _finite_run(name, [loss], [gnorm])
+        peak = torch.cuda.max_memory_allocated()
+        wall = time.perf_counter() - t0
+        log(f"[train] {name} cut to {cut} at full width ({n_params / 1e9:.3f}"
+            f" B parameters, {cfg.optimizer}, window {cfg.attn_window}) B "
+            f"{B_} x S {S}, one step: loss {loss!r}, grad norm {gnorm!r}"
+            + ("" if aux is None else f", auxiliary loss {aux!r}")
+            + f"; launches {counts}; peak device memory {peak / 2**30:.2f} "
+            f"GiB ({peak / 1e9:.2f} GB; {held / 2**30:.2f} GiB held before); "
+            f"{wall:.1f}s (init included)")
+        out[name] = {"cut": cut, "batch": B_, "seq": S, "n_params": n_params,
+                     "optimizer": cfg.optimizer, "loss": loss,
+                     "grad_norm": gnorm, "aux": aux, "launches": counts,
+                     "peak_mem_bytes": peak, "held_before_bytes": held,
+                     "seconds": wall}
+        del bundle, params, opt, art, m
+
+    # (e) float32 steps past S 1024, card against CPU
+    fresh()
+    for name, B_, S in TRAIN_F32:
+        cfg = get_config(name, smoke=True)
+        params = tu.tree_map(lambda t: t.float(), model_zoo.build(cfg).init(
+            torch.Generator(device=dev).manual_seed(4), dev))
+        batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                       global_batch=B_)).batch_at(0)
+        serve.reset_launch_counts()
+        t0 = time.perf_counter()
+        cmp = TC.step_card_against_cpu(cfg, params, batch,
+                                       OptConfig(lr=TRAIN_LR))
+        counts = serve.launch_counts()
+        expect = {k: 0 for k in serve.KERNELS}
+        expect.update(_expected_flash(cfg, cfg.n_layers))
+        path_launches(f"train {name} smoke float32", counts, expect)
+        log(f"[train] {name} smoke, float32, B {B_} x S {S}: one step on the "
+            f"card against the CPU: loss {cmp['card']['loss']!r} / "
+            f"{cmp['cpu']['loss']!r} (relative {cmp['loss_rel']:.3g}), grad "
+            f"norm {cmp['card']['grad_norm']!r} / {cmp['cpu']['grad_norm']!r}"
+            f" (relative {cmp['grad_norm_rel']:.3g}; limit {TC.F32_RTOL}) "
+            f"({time.perf_counter() - t0:.1f}s)")
+        out[f"{name} float32 card vs CPU"] = cmp
+        del params
+    fresh()
     return out
 
 
@@ -2257,6 +2564,94 @@ def time_flash(dev):
             + time_flash_at(dev, FLASH_TIMED_D112, flush, 10))
 
 
+def flash_bwd_bound(B, H, KVH, S, D, window=0):
+    """``(bound ms, bound_by, bytes ms)`` of the flash backward at a causal
+    bf16 training layer: the five products (q k^T, dout v^T, ds k, ds^T q,
+    p^T dout), 2 D operations a (query, key) pair each inside the causal
+    window, over the bf16 tensor-core peak; or q, out, dout, dq, k, v, dk,
+    dv (bf16) and lse (float32) read or written once over the memory
+    rate."""
+    pairs = sum(min(i + 1, window) if window > 0 else i + 1
+                for i in range(S))
+    flops = 10 * B * H * D * pairs
+    n_bytes = 2 * (4 * B * S * H * D + 4 * B * S * KVH * D) + 4 * B * S * H
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return ((t_ops, "operations", t_bytes) if t_ops >= t_bytes
+            else (t_bytes, "bytes", t_bytes))
+
+
+def time_flash_bwd(dev):
+    """Device ms of the flash backward kernel at each ``FLASH_BWD_TIMED``
+    shape (bf16, causal; the saved out and lse from kernel 5), beside its
+    plain version, its bound and the backward of
+    ``scaled_dot_product_attention`` (autograd through it at the same
+    shape, the backward alone timed: the library yardstick, never used by
+    the port)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+    iters = 5
+    rows = []
+    for shape in FLASH_BWD_TIMED:
+        Bq, H, KVH, S, D = (shape[k] for k in ("B", "H", "KVH", "S", "D"))
+        window = shape.get("window", 0)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        q, k, v, dout = (torch.randn(sh, generator=gen, device=dev).bfloat16()
+                         for sh in ((Bq, S, H, D), (Bq, S, KVH, D),
+                                    (Bq, S, KVH, D), (Bq, S, H, D)))
+        scale = 1.0 / math.sqrt(D)
+        qs = (q.float() * scale).to(q.dtype)
+        out, lse = FA.flash_attention(qs, k, v, scale=1.0, window=window,
+                                      return_lse=True)
+        kw = dict(window=window, scale=scale)
+        row = dict(shape, causal=True, dtype="bfloat16")
+        row["ms"], row["host_ms"] = cold_ms(
+            lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout, **kw),
+            iters, flush)
+        row["splits"] = FA.dkdv_splits(
+            Bq, S, KVH, H // KVH, D,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+        # the dk/dv kernel at each head split (1: as it ran before them)
+        row["split_ms"] = {
+            n: cold_ms(lambda: FA.flash_attention_bwd(
+                q, k, v, out, lse, dout, splits=n, **kw), iters, flush)[0]
+            for n in range(1, H // KVH + 1) if (H // KVH) % n == 0}
+        row["plain_ms"], _ = cold_ms(
+            lambda: FA.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                 **kw), 1, flush)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        if window:
+            pos = torch.arange(S, device=dev)
+            band = (pos[None, :] <= pos[:, None]) & (
+                pos[None, :] > pos[:, None] - window)
+            o = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+        else:
+            o = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = dout.transpose(1, 2)
+        row["library_ms"], _ = cold_ms(
+            lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                        retain_graph=True), iters, flush)
+        row["bound_ms"], row["bound_by"], row["bytes_ms"] = flash_bwd_bound(
+            Bq, H, KVH, S, D, window)
+        log(f"[time] flash_attention_bwd B={Bq} H={H} KVH={KVH} S={S} D={D} "
+            f"causal window={window} bf16: {row['ms']:.4f} ms at "
+            f"{row['splits']} head splits (by splits: "
+            + ", ".join(f"{n} {t:.4f}" for n, t in row["split_ms"].items())
+            + f" ms; host enqueue {row['host_ms']:.4f} ms), plain {row['plain_ms']:.1f} ms, "
+            f"scaled_dot_product_attention backward {row['library_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
+            f"{row['bytes_ms']:.4f} ms)")
+        rows.append(row)
+        del q, k, v, dout, out, lse, qt, kt, vt, o, dot
+    torch.cuda.synchronize()
+    return rows
+
+
 def family_prefill(dev, what, bundle, params, batch, n_flash, repeats,
                    tag="families"):
     """One full-width prefill of ``batch`` through ``make_serve_fns``:
@@ -2859,6 +3254,80 @@ def moe_only() -> int:
     return 0
 
 
+def flash_digests(src, tag) -> int:
+    """``--flash-digests SRC TAG``: kernel 5 built from the port under
+    ``SRC`` (this checkout's ``src``, or an earlier revision unpacked with
+    ``git archive``) and run on every case of ``check_flash`` (the same
+    seeded inputs); the SHA-256 of each output's values goes to
+    ``chiprun_out/flash_digests_<TAG>.json``."""
+    sys.path.insert(0, os.path.abspath(src))
+    import hashlib
+
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.testing import attention_checks as AC
+
+    log(f"[build] {build.build_all(['flash_attention'])}")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    groups = [AC.flash_cases(gen),
+              AC.flash_cases(gen, AC.FLASH_SHAPES_D256, AC.FLASH_MASKS_D256),
+              AC.flash_cases(gen, AC.FLASH_SHAPES_D112, AC.FLASH_MASKS_D256)]
+    digests = {label: hashlib.sha256(FA.flash_attention(**kw).float().cpu()
+                                     .numpy().tobytes()).hexdigest()
+               for label, kw in (case for group in groups for case in group)}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out",
+                           f"flash_digests_{tag}.json"), "w") as f:
+        json.dump({"gpu": smi, "src": os.path.abspath(src),
+                   "digests": digests}, f, indent=1)
+    log(f"[flash-digests] {tag}: {len(digests)} cases, {smi}")
+    return 0
+
+
+def train_only() -> int:
+    """``--train``: kernel 5 and the flash backward built, the attention
+    families' training (``train_attention``: the backward's checks,
+    full-width qwen3-4b through the train CLI, the recurrentgemma and grok
+    cuts, float32 card against CPU) and the backward's timings, with no
+    other phase; results in ``chiprun_out/train.json``."""
+    import torch
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+    phases = Phases()
+    names = ["flash_attention", "flash_attention_bwd"]
+    log(f"[build] {build.build_all(names)} (parallel)")
+    for name in names:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"[build] {name}: {line.strip()}")
+    phases.done("build")
+    train = train_attention(dev)
+    phases.done("train")
+    flash_bwd = time_flash_bwd(dev)
+    phases.done("timing")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "train.json"), "w") as f:
+        json.dump({"gpu": smi, "train": train, "flash_bwd": flash_bwd,
+                   "phase_s": phases.seconds}, f, indent=1)
+    log(smi)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2870,6 +3339,14 @@ def main() -> int:
         return families_only()
     if sys.argv[1:] == ["--moe"]:
         return moe_only()
+    if sys.argv[1:] == ["--train"]:
+        return train_only()
+    if sys.argv[1:2] == ["--flash-digests"]:
+        if len(sys.argv) != 4:
+            print("usage: chip_smoke.py --flash-digests SRC TAG",
+                  file=sys.stderr)
+            return 2
+        return flash_digests(*sys.argv[2:4])
     if sys.argv[1:2] and sys.argv[1] in TIMES:
         if len(sys.argv) != 4:
             print(f"usage: chip_smoke.py {sys.argv[1]} SRC TAG",
@@ -2943,6 +3420,7 @@ def main() -> int:
     gemm, scan, gru_scan, (cell, ln) = time_kernels(dev, lstm_layer,
                                                     gru_layer)
     flash = time_flash(dev)
+    flash_bwd = time_flash_bwd(dev)
     barrier = time_barrier(dev)
     phases.done("timing")
 
@@ -2958,8 +3436,15 @@ def main() -> int:
                     for fam in list(families.values()) + [
                         moe[name] for name in MOE]
                     for p in fam["prefills"]}
+    # and training past S 1024: the full-width qwen3-4b run and the cuts
+    attn_train = train["attention"]
+    train_flash = {f"train {name}": attn_train[name]["launches"]
+                   for name in [TRAIN_LM] + [c[0] for c in TRAIN_CUTS]}
     launches["flash_attention"] = prefill["launches"]["flash_attention"] \
-        + sum(family_flash.values())
+        + sum(family_flash.values()) + sum(
+            c["flash_attention"] for c in train_flash.values())
+    launches["flash_attention_bwd"] = sum(
+        c["flash_attention_bwd"] for c in train_flash.values())
     gemm_by_shape = {}
     for path in engines + fleet + [stepwise]:
         for shape, n in path["gemm_launches_by_shape"].items():
@@ -3004,7 +3489,22 @@ def main() -> int:
                           flash),
              launches_by_path=dict(
                  {f"{TRANSFORMER} B={PREFILL_B} S={PREFILL_S}":
-                  prefill["launches"]["flash_attention"]}, **family_flash)),
+                  prefill["launches"]["flash_attention"]}, **family_flash,
+                 **{p: c["flash_attention"]
+                    for p, c in train_flash.items()})),
+        dict(kernel_entry("flash_attention_bwd", KF.backward,
+                          launches["flash_attention_bwd"],
+                          max(attn_train["check"]["float32"],
+                              attn_train["check"]["bfloat16"]),
+                          flash_bwd[0], "B=1 H=32 KVH=8 S=4096 D=128 causal "
+                          "bf16 (a qwen3-4b training layer; a "
+                          "recurrentgemma-9b layer, window 2048, follows in "
+                          "shapes)", flash_bwd),
+             launches_by_path={p: c["flash_attention_bwd"]
+                               for p, c in train_flash.items()},
+             launches_per_step={
+                 f"train {TRAIN_LM}": attn_train[TRAIN_LM][
+                     "launches_per_step"]["flash_attention_bwd"]}),
     ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3015,7 +3515,7 @@ def main() -> int:
                    "stepwise": stepwise, "prefill": prefill,
                    "transformer_serve": transformer_serve,
                    "families": families, "moe": moe,
-                   "grid_barrier": barrier,
+                   "grid_barrier": barrier, "flash_bwd": flash_bwd,
                    "batch": B, "prompt_len": T, "gen": GEN,
                    "phase_s": phases.seconds}, f, indent=1)
     log(smi)

@@ -9,6 +9,8 @@
 //   m' = max(m, rowmax);  alpha = exp(m - m');  p = exp(logits - m')
 //   l  = l * alpha + rowsum(p);  acc = acc * alpha + bf16_or_f32(p) . v
 //   out = acc / max(l, 1e-30), cast to the input type
+//   lse = m + log(max(l, 1e-30))   (float32 (B, Sq, H), where asked for:
+//         what the backward, flash_attention_bwd.cu, reads)
 // in float32 registers, as the TPU kernel keeps them in VMEM scratch.
 // q is (B, Sq, H, D), k and v (B, Sk, KVH, D), read through their strides
 // (no transpose, no repeat_kv copy: head h reads KV head h / (H / KVH)).
@@ -73,6 +75,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Sq, H), or null: not written
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;  // element strides
   int B, Sq, Sk, H, KVH, causal, window, q_offset;
   float scale;
@@ -261,6 +264,8 @@ __global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
       const int col = kVec == 4 ? (c / 4) * 64 + tx * 4 + (c % 4) : c * 16 + tx;
       dst[col] = from_f32<T>(acc[i][c] / den);
     }
+    if (a.lse != nullptr && tx == 0)  // m, l are the 16 lanes' common values
+      a.lse[(static_cast<size_t>(b) * a.Sq + s) * a.H + h] = m[i] + logf(den);
   }
 }
 
@@ -276,6 +281,7 @@ constexpr int kConsumers = 2;  // warpgroups of 64 q rows
 constexpr int kThreads = 128 * kConsumers;
 constexpr int kBox = tiles::kTcBox;  // bf16 columns per TMA box (128 bytes)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // tile byte sizes; a tile is Dp/64 column blocks of rows x 128 bytes (Dp
 // the padded width, tiles::tc_padded), each block 128-byte swizzled by TMA.
@@ -293,6 +299,7 @@ struct Layout {
 
 struct Params {
   void* o;
+  float* lse;  // (B, Sq, H), or null
   int B, Sq, Sk, H, KVH, causal, window, q_offset, n_qt;
   float scale_log2;  // scale * log2(e)
   int q_pos[3], k_pos[3], v_pos[3];  // tensor-map coordinate of (h, s, b)
@@ -710,6 +717,17 @@ __global__ void __launch_bounds__(kThreads, 1)
             out + ((static_cast<size_t>(b) * a.Sq + s1) * a.H + h) * D + d) =
             __floats2bfloat162_rn(o[4 * c + 2] / d1, o[4 * c + 3] / d1);
     }
+    // the row's log-sum-exp in natural units (m is in log2 units; a row
+    // that attends no key keeps m = -1e30, as the reference's does), from
+    // the first of the 4 lanes that share the row
+    if (a.lse != nullptr && t4 == 0) {
+      if (s0 < a.Sq)
+        a.lse[(static_cast<size_t>(b) * a.Sq + s0) * a.H + h] =
+            m0 == kNegInf ? kNegInf : m0 * kLn2 + logf(d0);
+      if (s1 < a.Sq)
+        a.lse[(static_cast<size_t>(b) * a.Sq + s1) * a.H + h] =
+            m1 == kNegInf ? kNegInf : m1 * kLn2 + logf(d1);
+    }
   }
 }
 
@@ -778,7 +796,7 @@ bool make_map(CUtensorMap* map, int (&pos)[3], const void* ptr, int D,
 template <int D>
 int launch(const Args& a, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  Params p{a.o, a.B, a.Sq, a.Sk, a.H, a.KVH, a.causal, a.window, a.q_offset,
+  Params p{a.o, a.lse, a.B, a.Sq, a.Sk, a.H, a.KVH, a.causal, a.window, a.q_offset,
            (a.Sq + kBQ - 1) / kBQ, a.scale * kLog2e};
   constexpr int kBK = Layout<D>::kBK;
   if (!make_map(&mq, p.q_pos, a.q, D, a.H, a.Sq, a.B, a.qsh, a.qss, a.qsb,
@@ -840,19 +858,21 @@ int launch_dim(const Args& a, int D, cudaStream_t stream) {
 
 // Plain C entry point (bound with ctypes).  dtype 0 = float32, 1 = bfloat16.
 // Strides are in elements; the last axis of q, k, v is contiguous and the
-// output is a contiguous (B, Sq, H, D).  Returns cudaGetLastError() (or
+// output is a contiguous (B, Sq, H, D); lse, where not null, a contiguous
+// float32 (B, Sq, H).  Returns cudaGetLastError() (or
 // cudaErrorInvalidValue where a tensor map cannot be made).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, long long qsb,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int B, int Sq, int Sk, int H,
     int KVH, int D, int dtype, int causal, int window, int q_offset,
     float scale, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q,   k,   v,   o,  qsb, qss, qsh,    ksb,    kss,      ksh,  vsb,
-               vss, vsh, B,   Sq, Sk,  H,   KVH,    causal, window,   q_offset,
-               scale};
+  const Args a{q,   k,   v,   o,  static_cast<float*>(lse), qsb, qss, qsh,
+               ksb, kss, ksh, vsb, vss, vsh, B,   Sq,  Sk,  H,   KVH,
+               causal, window, q_offset, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && rows_aligned(a)) {
     switch (D) {

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 KERNELS = ("int8_matmul", "quant_lstm_scan", "quant_gru_scan", "int_layernorm",
-           "quant_lstm_cell", "flash_attention")
+           "quant_lstm_cell", "flash_attention", "flash_attention_bwd")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

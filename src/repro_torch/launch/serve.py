@@ -77,7 +77,8 @@ from . import fleet as F
 KERNELS = {"int8_matmul": int8_matmul, "quant_lstm_scan": quant_lstm_scan,
            "quant_gru_scan": quant_gru_scan, "int_layernorm": int_layernorm,
            "quant_lstm_cell": quant_lstm_cell,
-           "flash_attention": flash_attention}
+           "flash_attention": flash_attention,
+           "flash_attention_bwd": flash_attention.backward}
 RECURRENT_QUANT = ("int8-lstm", "int8-gru")
 
 

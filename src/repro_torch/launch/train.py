@@ -10,7 +10,12 @@ through ``runtime.train_loop.make_train_step`` (float, or QAT with
 ``--qat``; ``--microbatches``, ``--grad-compress``; ``--data-vocab``
 narrows the tokens), the step's wall time
 held against the ``StepWatchdog``, async checkpoints every
-``--ckpt-every`` steps and ``--resume`` from the latest one.  It runs on
+``--ckpt-every`` steps and ``--resume`` from the latest one.  The step
+updates the params and optimizer state in place (``donate``, as the
+reference's launcher donates its buffers), so full-width ``qwen3-4b``
+trains at ``--batch 1 --seq 4096`` on one 80 GB card: each layer is
+recomputed in the backward (its ``remat``) and attention past S 1024 runs
+the flash kernels forward and backward.  It runs on
 the card unless ``--device cpu`` is given, with float32 products in full
 (TF32 off).  The sharded run (the reference's ``--mesh``) comes with the
 mesh (ROADMAP Queue 1).
@@ -36,6 +41,7 @@ from ..runtime.train_loop import TrainArtifacts, make_train_step
 @dataclasses.dataclass
 class TrainResult:
     losses: List[float]
+    grad_norms: List[float]
     step_s: List[float]  # wall seconds of each step, host clock
     start_step: int
     params: Any
@@ -94,7 +100,8 @@ def run(args: argparse.Namespace) -> TrainResult:
                         total_steps=args.steps)
     art = make_train_step(bundle, device, opt_cfg,
                           microbatches=args.microbatches,
-                          grad_compress_int8=args.grad_compress, qat=args.qat)
+                          grad_compress_int8=args.grad_compress, qat=args.qat,
+                          donate=True)
     params = bundle.init(torch.Generator(device=device).manual_seed(0),
                          device)
     opt_state = art.init_opt(params)
@@ -108,7 +115,7 @@ def run(args: argparse.Namespace) -> TrainResult:
         print(f"resumed from step {start_step}")
 
     watchdog = StepWatchdog()
-    losses, step_s = [], []
+    losses, grad_norms, step_s = [], [], []
     for step, batch in data.iterate(start_step):
         if step >= args.steps:
             break
@@ -119,6 +126,7 @@ def run(args: argparse.Namespace) -> TrainResult:
         step_s.append(time.perf_counter() - t0)
         verdict = watchdog.observe(step_s[-1])
         losses.append(loss)
+        grad_norms.append(float(metrics["grad_norm"]))
         if step % 10 == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss {loss:.4f} lr "
                   f"{float(metrics['lr']):.2e} gnorm "
@@ -134,8 +142,8 @@ def run(args: argparse.Namespace) -> TrainResult:
     else:
         print(f"no step to run: resumed at step {start_step} of "
               f"{args.steps}")
-    return TrainResult(losses, step_s, start_step, params, opt_state, art,
-                       data)
+    return TrainResult(losses, grad_norms, step_s, start_step, params,
+                       opt_state, art, data)
 
 
 def main(argv: Optional[List[str]] = None) -> None:

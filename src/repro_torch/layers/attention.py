@@ -1,21 +1,23 @@
 """Attention: GQA, blockwise (flash) softmax, decode against a KV cache.
 
-Port of the forward paths of ``repro.layers.attention``:
+Port of ``repro.layers.attention``:
 
 * ``flash_attention`` -- blockwise online softmax; it launches the
   hand-written kernel ``kernels/flash_attention.py`` on CUDA tensors and
-  takes that kernel's plain version on CPU tensors (the model's prefill at
-  S > 1024);
+  takes that kernel's plain version on CPU tensors (the model's forward at
+  S > 1024).  Under autograd it runs through ``FlashAttention``, the
+  reference's custom VJP: the forward also writes each row's log-sum-exp,
+  and the backward recomputes each tile's logits from the saved ``(q, k,
+  v, out, lse)`` (``flash_attention_bwd``: the hand-written backward
+  kernel on CUDA tensors, its plain version on CPU tensors);
 * ``full_attention`` -- the direct product for short sequences (plain
   PyTorch, as the reference runs it in XLA);
 * ``decode_attention`` -- one query position against a bf16 or int8 KV
   cache (plain PyTorch: the reference has no kernel for it).
 
-The training backward of ``flash_attention`` (the reference's custom VJP)
-and its triangular-schedule environment toggle are not ported: the
-default rectangular schedule defines the result, and the kernel skips only
-tiles that schedule leaves unchanged.  On the CPU autograd differentiates
-the plain version; on the card the kernel refuses to run under autograd.
+The reference's triangular-schedule environment toggle is not ported: the
+default rectangular schedule defines the result, and the kernels skip only
+tiles that schedule leaves unchanged.
 """
 from __future__ import annotations
 
@@ -87,26 +89,67 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         v.float()).to(v.dtype)
 
 
+def _flash_forward(q, k, v, q_offset, causal, window, block_q, block_k,
+                   return_lse=False):
+    """The reference's ``_flash_fwd_impl``: q pre-scaled by ``1/sqrt(D)``
+    in its own dtype, then the kernel (or its plain version) at
+    ``scale=1.0`` over the reference's chunks."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    qs = (q.float() * scale).to(q.dtype)
+    return FA.flash_attention(
+        qs, k, v, causal=causal, window=window, scale=1.0, q_offset=q_offset,
+        block_q=_pick_block(q.shape[1], block_q),
+        block_k=_pick_block(k.shape[1], block_k), return_lse=return_lse)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with the reference's custom VJP: the forward
+    saves ``(q, k, v, out, lse)`` (q unscaled, k and v unrepeated), the
+    backward is ``flash_attention_bwd`` at the reference's chunks on the
+    CPU and the backward kernel on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, causal, window, block_q, block_k):
+        out, lse = _flash_forward(q, k, v, q_offset, causal, window, block_q,
+                                  block_k, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (q_offset, causal, window, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        q_offset, causal, window, block_q, block_k = ctx.args
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = FA.flash_attention_bwd(
+            q, k, v, out, lse, dout, causal=causal, window=window,
+            scale=1.0 / np.sqrt(q.shape[-1]), q_offset=q_offset,
+            block_q=_pick_block(q.shape[1], block_q),
+            block_k=_pick_block(k.shape[1], block_k))
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: int = 0, causal: bool = True, window: int = 0,
                     block_q: int = 512, block_k: int = 512) -> torch.Tensor:
-    """Blockwise online-softmax attention forward.
+    """Blockwise online-softmax attention.
 
     q ``(B, Sq, H, D)``; k/v ``(B, Sk, KVH, D)`` with KVH dividing H (the
     reference takes them GQA-repeated; each query head reads its KV head in
     place, which computes the same).  q is pre-scaled by ``1/sqrt(D)`` in
     its own dtype, as the reference layer does, and the kernel then runs
-    with ``scale=1.0``.  ``block_q``/``block_k`` pick the plain version's
-    tiles as the reference picks its chunks (the largest divisor of the
-    length up to the target); the CUDA kernel tiles by its own.
+    with ``scale=1.0``.  ``block_q``/``block_k`` pick the plain versions'
+    chunks as the reference picks them (the largest divisor of the length
+    up to the target); the CUDA kernels tile by their own.  Where autograd
+    records (grad enabled and an input requires grad) it runs through
+    ``FlashAttention``; otherwise no log-sum-exp is written.
     """
-    D = q.shape[-1]
-    scale = 1.0 / np.sqrt(D)
-    qs = (q.float() * scale).to(q.dtype)
-    return FA.flash_attention(
-        qs, k, v, causal=causal, window=window, scale=1.0, q_offset=q_offset,
-        block_q=_pick_block(q.shape[1], block_q),
-        block_k=_pick_block(k.shape[1], block_k))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, q_offset, causal, window,
+                                    block_q, block_k)
+    return _flash_forward(q, k, v, q_offset, causal, window, block_q,
+                          block_k)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -35,8 +35,37 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, kind: str,
         generator, stack + (d_ff, d_model), dtype, device=device)
 
 
-def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    return 1 / (1 + torch.exp(-x))
+class _Logistic(torch.autograd.Function):
+    """``sigmoid`` under autograd: the same forward, and the reference's
+    derivative of the logistic, ``g * (s * (1 - s))`` from its output (the
+    jvp of ``lax.logistic``).  Autograd of the formula itself multiplies
+    ``exp(-x) = inf`` by 0 where x < -88 and gives NaN (a full-width grok
+    expert's gate, whose weights are drawn at 1/sqrt(E), reaches it)."""
+
+    @staticmethod
+    def forward(ctx, x, f32_division):
+        s = _logistic(x, f32_division)
+        ctx.save_for_backward(s)
+        ctx.dtype = x.dtype
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return (g * (s * (1 - s))).to(ctx.dtype), None
+
+
+def _logistic(x: torch.Tensor, f32_division: bool) -> torch.Tensor:
+    e = 1 + torch.exp(-x)
+    return 1 / (e.float() if f32_division else e)
+
+
+def sigmoid(x: torch.Tensor, f32_division: bool = False) -> torch.Tensor:
+    """``1 / (1 + exp(-x))`` op by op in x's dtype (the division in
+    float32 with ``f32_division``); under autograd through ``_Logistic``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Logistic.apply(x, f32_division)
+    return _logistic(x, f32_division)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -66,11 +66,12 @@ def _rglru_scan(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
     # (T, B, D) so that each step's slices are contiguous
     a_s = a_t.transpose(0, 1).contiguous()
     bx = (beta * gated_x).transpose(0, 1).contiguous()
-    ys = torch.empty((T, B, D), dtype=torch.float32, device=x.device)
     # one fused multiply-add a step, as XLA contracts a_t * h + bx_t
-    for a, b, o in zip(a_s.unbind(0), bx.unbind(0), ys.unbind(0)):
-        h = torch.addcmul(b, a, h, out=o)
-    return ys.transpose(0, 1), h.clone()
+    steps = []
+    for a, b in zip(a_s.unbind(0), bx.unbind(0)):
+        h = torch.addcmul(b, a, h)
+        steps.append(h)
+    return torch.stack(steps, dim=1), h
 
 
 def rglru_apply(params: Dict, x: torch.Tensor,
@@ -85,7 +86,7 @@ def rglru_apply(params: Dict, x: torch.Tensor,
                                  conv_cache)
     # r reaches the scan only as float32: under jit XLA drops the bf16
     # rounding of the logistic's last op, the division (ROADMAP Queue 3, F6)
-    r = 1 / (1 + torch.exp(-mm(xs, params["rg_gate_r"]))).float()
+    r = sigmoid(mm(xs, params["rg_gate_r"]), f32_division=True)
     i = sigmoid(mm(xs, params["rg_gate_i"]))
     h0 = state["h"] if state is not None else None
     y, h_T = _rglru_scan(xs, r, i, params["rg_lambda"], h0)

@@ -82,12 +82,14 @@ def _ssm_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         t1 = min(T, t0 + SCAN_CHUNK)
         dA = torch.exp(delta_t[t0:t1, :, :, None] * A)  # (c, Bt, Di, N)
         dBu = du_t[t0:t1, :, :, None] * B_t[t0:t1, :, None, :]
-        hs = torch.empty_like(dA)
         # one fused multiply-add a step, as XLA contracts h * dA_t + dBu_t
-        for a, b, o in zip(dA.unbind(0), dBu.unbind(0), hs.unbind(0)):
-            h = torch.addcmul(b, h, a, out=o)
+        steps = []
+        for a, b in zip(dA.unbind(0), dBu.unbind(0)):
+            h = torch.addcmul(b, h, a)
+            steps.append(h)
+        hs = torch.stack(steps)
         ys[t0:t1] = torch.einsum("tbdn,tbn->tbd", hs, C_t[t0:t1])
-    return ys.transpose(0, 1), h.clone()
+    return ys.transpose(0, 1), h
 
 
 def ssm_apply(params: Dict, x: torch.Tensor,

@@ -8,19 +8,23 @@ carry a leading ``(n_layers,)`` axis.  The decode state is the reference's
 d_conv - 1, d_inner)}, "len"}``; ``decode_step`` writes each layer's new
 state into those tensors in place (the reference returns new arrays) and
 ``len`` is a Python int.  No kernel runs: the products are plain PyTorch,
-as the reference leaves them to XLA, and the scan is a loop.
+as the reference leaves them to XLA, and the scan is a loop.  Training
+(``loss_fn``) recomputes each layer in the backward where ``cfg.remat`` is
+``"full"`` (``torch.utils.checkpoint``), as the reference wraps its layer
+step in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..layers import embedding as emb
 from ..layers import ssm as ssm_lib
 from ..layers.common import norm_apply, norm_init
-from .transformer import layer_params
+from .transformer import layer_params, remat_of
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig, device=None
@@ -41,21 +45,30 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, device=None
     return params
 
 
+def _layer(p, cfg: ArchConfig, x, st):
+    y, nst = ssm_lib.ssm_apply(p, norm_apply(cfg.norm_type, x, p, "norm"), st,
+                               cfg.d_state, cfg.dt_rank())
+    return x + y, nst
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
-            states: Optional[Dict] = None
+            states: Optional[Dict] = None, train: bool = False
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """tokens (B, S) -> (logits (B, S, vocab), states with len + 1 or
     None).  With ``states`` every layer's scan and conv start from its
-    state, which is then overwritten in place."""
+    state, which is then overwritten in place.  ``train`` recomputes each
+    layer in the backward where ``remat_of(cfg, train)``."""
     x = emb.embed_tokens(params, tokens)
+    remat = remat_of(cfg, train) and states is None
     for i in range(cfg.n_layers):
         p = layer_params(params["layers"], i)
         st = None
         if states is not None:
             st = {k: t[i] for k, t in states["layers"].items()}
-        y, nst = ssm_lib.ssm_apply(p, norm_apply(cfg.norm_type, x, p, "norm"),
-                                   st, cfg.d_state, cfg.dt_rank())
-        x = x + y
+        if remat:
+            x, nst = checkpoint(_layer, p, cfg, x, None, use_reentrant=False)
+        else:
+            x, nst = _layer(p, cfg, x, st)
         if nst is not None:
             for k, t in nst.items():
                 st[k].copy_(t)
@@ -67,7 +80,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
-    logits, _ = forward(params, cfg, batch["tokens"])
+    logits, _ = forward(params, cfg, batch["tokens"], train=True)
     return emb.cross_entropy(logits, batch["labels"])
 
 

@@ -13,7 +13,7 @@
 for the ``dense``, ``vlm`` and ``moe`` families (``batch`` is ``{"tokens":
 (B, S)}``, plus ``"labels"`` for the loss and ``"frontend_embeds": (B, F,
 d)`` for the VLM stub; the MoE models grok-1-314b and kimi-k2-1t-a32b
-serve, and their ``loss`` raises: MoE training is ROADMAP Queue 1 item 9),
+on one device, their ``loss`` with the auxiliary load-balancing loss),
 the ``lstm`` family (the float recurrent LM of every
 ``rnn_cell``: ``lstm-rnnt``, ``gru-rnnt``), ``encdec`` (whisper-tiny: the
 batch also holds ``"frontend_embeds": (B, N_FRAMES, d)``, the frontend
@@ -87,7 +87,7 @@ def _dense(cfg: ArchConfig) -> ModelBundle:
 _FAMILIES = {
     "dense": _dense,
     "vlm": _dense,
-    "moe": _dense,  # layers/moe.py on one device; its loss raises
+    "moe": _dense,  # layers/moe.py on one device
     # one registration serves every cell: lstm_lm dispatches on
     # cfg.rnn_cell, as the reference's does
     "lstm": lambda cfg: _module_bundle(

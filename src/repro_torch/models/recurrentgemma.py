@@ -67,14 +67,14 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, device=None
 def _rec_block(p, cfg: ArchConfig, x, dt, state):
     h, new_state = rec.rglru_apply(
         p, norm_apply(cfg.norm_type, x, p, "norm_mix").to(dt), state)
-    return T.residual_mlp(p, cfg, x, h, unrounded=True), new_state
+    return T.residual_mlp(p, cfg, x, h, unrounded=True)[0], new_state
 
 
 def _attn_block(p, cfg: ArchConfig, x, dt, positions, cache):
     h = T._attention_block(
         p, cfg, norm_apply(cfg.norm_type, x, p, "norm_attn").to(dt),
         positions, cache)
-    return T.residual_mlp(p, cfg, x, h, unrounded=True)
+    return T.residual_mlp(p, cfg, x, h, unrounded=True)[0]
 
 
 def _embed(params, tokens: torch.Tensor):

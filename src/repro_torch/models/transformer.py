@@ -11,16 +11,21 @@ axis under ``params["layers"]`` (and the dense prefix's under
 Python loop (views, no copies).  A quantized tree
 (``quant_transformer.quantize_param_tree``) runs through the same code.
 
-A prefill of S > 1024 tokens runs ``attention.flash_attention`` in every
-layer, which launches the hand-written CUDA kernel on the card; shorter
-ones run ``full_attention``.  Training an MoE model (the reference's
-auxiliary load-balancing loss) is not ported (ROADMAP Queue 1 item 9).
+A forward of S > 1024 positions runs ``attention.flash_attention`` in
+every layer, which launches the hand-written CUDA kernel on the card (and,
+under autograd, its hand-written backward); shorter ones run
+``full_attention``.  Training (``loss_fn``, ``train=True``) wraps each
+layer in ``torch.utils.checkpoint`` where ``cfg.remat`` is ``"full"``, as
+the reference wraps its layer step in ``jax.checkpoint``, and adds the MoE
+layers' auxiliary load-balancing loss; the reference's expert-parallel
+``shard_map`` branch is not ported (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..layers import attention as attn
@@ -177,47 +182,64 @@ def _attention_block(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     return qmm.mm(o.reshape(B, S, H * hd), p["wo"])
 
 
-def ffn(p: Dict, cfg: ArchConfig, x, is_moe: bool = False):
-    """The block's feed-forward on its normed input x ``(B, S, d)``: the
-    MLP, or the MoE layer over the B * S tokens plus the shared experts'
-    MLP where the config has them.  The router reads x as rounded: the
-    normed tokens have other users, and the jitted reference keeps their
-    rounding (the smoke models' logits are equal bit for bit)."""
+def moe_aux(p: Dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The reference's auxiliary load-balancing loss of one MoE layer over
+    its ``(T, d)`` routed tokens: ``n_experts * sum(frac * mean(softmax))``,
+    ``frac`` each expert's share of the tokens whose top logit it holds
+    (float32 logits ``tokens @ router``; no gradient flows through the
+    argmax)."""
+    logits = tokens.float() @ p["moe_router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    frac = torch.nn.functional.one_hot(logits.argmax(-1),
+                                       cfg.n_experts).float().mean(0)
+    return cfg.n_experts * torch.sum(frac * probs.mean(0))
+
+
+def ffn(p: Dict, cfg: ArchConfig, x, is_moe: bool = False,
+        train: bool = False):
+    """``(y, aux)``: the block's feed-forward on its normed input x ``(B,
+    S, d)`` -- the MLP, or the MoE layer over the B * S tokens plus the
+    shared experts' MLP where the config has them -- and, in training, an
+    MoE layer's ``moe_aux`` (else None).  The router reads x as rounded:
+    the normed tokens have other users, and the jitted reference keeps
+    their rounding (the smoke models' logits are equal bit for bit)."""
     if not is_moe:
-        return mlp_apply(p, x, cfg.mlp_type)
+        return mlp_apply(p, x, cfg.mlp_type), None
     B, S, d = x.shape
+    tokens = x.reshape(B * S, d)
+    aux = moe_aux(p, cfg, tokens) if train else None
     y = moe_lib.moe_apply_local(
-        p, x.reshape(B * S, d), n_experts=cfg.n_experts, topk=cfg.topk,
+        p, tokens, n_experts=cfg.n_experts, topk=cfg.topk,
         capacity_factor=cfg.capacity_factor).reshape(B, S, d)
     if cfg.n_shared_experts:
         y = y + mlp_apply(p, x, cfg.mlp_type, prefix="shared")
-    return y
+    return y, aux
 
 
 def residual_mlp(p: Dict, cfg: ArchConfig, x, h, unrounded: bool = False,
-                 is_moe: bool = False):
-    """The second half of a block: ``x + h``, then the feed-forward
-    (``ffn``) on its norm, added, in h's dtype.  The residual sum reaches
-    the norm unrounded and the residual stream rounded, as the jitted
-    reference computes it: XLA drops the bf16 rounding of a sum that is
-    cast to float32, as a norm casts its input (ROADMAP Queue 3, F6).
-    ``unrounded`` returns the block's own sum unrounded too, in float32,
-    for a model whose layers the reference unrolls (the next norm reads it
-    so; ``x`` may then be such a sum)."""
+                 is_moe: bool = False, train: bool = False):
+    """``(out, aux)``: the second half of a block -- ``x + h``, then the
+    feed-forward (``ffn``) on its norm, added, in h's dtype -- and ffn's
+    aux.  The residual sum reaches the norm unrounded and the residual
+    stream rounded, as the jitted reference computes it: XLA drops the
+    bf16 rounding of a sum that is cast to float32, as a norm casts its
+    input (ROADMAP Queue 3, F6).  ``unrounded`` returns the block's own sum
+    unrounded too, in float32, for a model whose layers the reference
+    unrolls (the next norm reads it so; ``x`` may then be such a sum)."""
     dt = h.dtype
     x2 = x.to(dt).float() + h.float()
-    y = ffn(p, cfg, norm_apply(cfg.norm_type, x2, p, "norm_mlp").to(dt),
-            is_moe)
+    y, aux = ffn(p, cfg, norm_apply(cfg.norm_type, x2, p, "norm_mlp").to(dt),
+                 is_moe, train)
     if unrounded:
-        return x2.to(dt).float() + y.float()
-    return x2.to(dt) + y
+        return x2.to(dt).float() + y.float(), aux
+    return x2.to(dt) + y, aux
 
 
 def _block(p: Dict, cfg: ArchConfig, x, positions, cache=None,
-           is_moe: bool = False):
+           is_moe: bool = False, train: bool = False):
     h = _attention_block(p, cfg, norm_apply(cfg.norm_type, x, p, "norm_attn"),
                          positions, cache)
-    return residual_mlp(p, cfg, x, h, is_moe=is_moe)
+    return residual_mlp(p, cfg, x, h, is_moe=is_moe, train=train)
 
 
 def _stacks(cfg: ArchConfig):
@@ -229,20 +251,46 @@ def _stacks(cfg: ArchConfig):
                    cfg.n_experts > 0)]
 
 
+def remat_of(cfg: ArchConfig, train: bool) -> bool:
+    """Does training recompute each layer in the backward?  The reference's
+    rule: ``train`` and ``cfg.remat != "none"``.  Its ``"dots"`` policy
+    (save the products, recompute the rest) is not ported: no registered
+    config uses it."""
+    if not train or cfg.remat == "none":
+        return False
+    if cfg.remat != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: remat={cfg.remat!r} is not ported (the port "
+            "recomputes whole layers: remat='full')")
+    return True
+
+
 def _run_layers(params, cfg: ArchConfig, x, positions,
-                caches: Optional[Dict] = None):
-    """The layers in order, one Python loop over each stack's weights."""
+                caches: Optional[Dict] = None, train: bool = False):
+    """``(x, aux, caches)``: the layers in order, one Python loop over each
+    stack's weights; aux sums the MoE layers' ``moe_aux`` in training (0
+    otherwise).  Where ``remat_of(cfg, train)`` each layer runs under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward, so only the layers' inputs stay saved."""
+    remat = remat_of(cfg, train)
+    total_aux = 0.0
     for key, ckey, n, is_moe in _stacks(cfg):
         for i in range(n):
+            p = layer_params(params[key], i)
             cache = None
             if caches is not None:
                 cache = {k: t[i] for k, t in caches[ckey].items()}
                 cache["pos"] = caches["len"]
-            x = _block(layer_params(params[key], i), cfg, x, positions,
-                       cache, is_moe)
+            if remat:
+                x, aux = checkpoint(_block, p, cfg, x, positions, None,
+                                    is_moe, train, use_reentrant=False)
+            else:
+                x, aux = _block(p, cfg, x, positions, cache, is_moe, train)
+            if aux is not None:
+                total_aux = total_aux + aux
     if caches is None:
-        return x, None
-    return x, dict(caches, len=caches["len"] + 1)
+        return x, total_aux, None
+    return x, total_aux, dict(caches, len=caches["len"] + 1)
 
 
 def _embed(params, tokens, frontend_embeds):
@@ -252,34 +300,35 @@ def _embed(params, tokens, frontend_embeds):
     return x
 
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
-            frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (B, S) -> logits (B, S_total, vocab).  ``frontend_embeds``
-    (B, F, d) are prepended (VLM patch stub).  The reference also returns
-    the MoE auxiliary loss, which only its training path computes."""
+def _forward(params, cfg: ArchConfig, tokens, frontend_embeds, train):
     x = _embed(params, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _run_layers(params, cfg, x, positions)
+    x, aux, _ = _run_layers(params, cfg, x, positions, train=train)
     x = norm_apply(cfg.norm_type, x, params, "norm_final")
-    return emb.logits_head(params, x)
+    return emb.logits_head(params, x), aux
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+            frontend_embeds: Optional[torch.Tensor] = None,
+            train: bool = False) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S_total, vocab).  ``frontend_embeds``
+    (B, F, d) are prepended (VLM patch stub).  ``train`` runs the layers
+    as training does (remat; ``loss_fn`` adds the MoE auxiliary loss,
+    which the reference also returns from here)."""
+    return _forward(params, cfg, tokens, frontend_embeds, train)[0]
 
 
 def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``{"tokens", "labels"}``
     and the VLM's ``"frontend_embeds"``, on the params' device), the
-    frontend positions cut from the logits.  The reference adds ``0.01 *``
-    the MoE auxiliary loss, which is 0 for a dense model; an MoE model's
-    training is not ported and raises."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training (the auxiliary load-balancing loss) is "
-            "not ported; it comes with the sharded train step (ROADMAP Queue "
-            "1 item 9): at full width it needs more than one card")
+    frontend positions cut from the logits, plus ``0.01 *`` the MoE layers'
+    auxiliary load-balancing loss (0 for a dense model), the layers run
+    with ``train=True``."""
     frontend = batch.get("frontend_embeds")
-    logits = forward(params, cfg, batch["tokens"], frontend_embeds=frontend)
+    logits, aux = _forward(params, cfg, batch["tokens"], frontend, True)
     if frontend is not None:
         logits = logits[:, frontend.shape[1]:]
-    return emb.cross_entropy(logits, batch["labels"])
+    return emb.cross_entropy(logits, batch["labels"]) + 0.01 * aux
 
 
 # --------------------------------------------------------------------------
@@ -319,7 +368,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     full logits (the final norm is per position)."""
     x = _embed(params, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _run_layers(params, cfg, x, positions)
+    x, _, _ = _run_layers(params, cfg, x, positions)
     x = norm_apply(cfg.norm_type, x[:, -1:], params, "norm_final")
     return emb.logits_head(params, x)[:, 0]
 
@@ -332,6 +381,6 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor,
     x = emb.embed_tokens(params, token)
     positions = torch.full((1,), caches["len"], dtype=torch.int32,
                            device=x.device)
-    x, new_caches = _run_layers(params, cfg, x, positions, caches)
+    x, _, new_caches = _run_layers(params, cfg, x, positions, caches)
     x = norm_apply(cfg.norm_type, x, params, "norm_final")
     return emb.logits_head(params, x[:, -1]), new_caches

@@ -15,8 +15,13 @@ update order and decay rules differ.  The reference's rules hold here:
 * every division is by a tensor: PyTorch's CUDA division by a Python
   number multiplies by its reciprocal, which rounds differently.
 
-Every function returns new tensors and leaves its inputs as they were.
-The optimizer state lives on the params' device.
+Every function returns new tensors and leaves its inputs as they were,
+except an update called with ``donate=True``: it writes each leaf's new
+param and moments into the given tensors (what the reference's donated
+buffers let XLA do), so a step holds one copy of the params and of the
+state, not two (full-width qwen3-4b's AdamW moments alone are 35 GB).  The
+values are the same bits either way.  The optimizer state lives on the
+params' device.
 """
 from __future__ import annotations
 
@@ -70,12 +75,25 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _clip_scale(grads, max_norm: float):
+    """``(scale, global norm)``: the factor that brings the grads' global
+    norm to at most ``max_norm``."""
+    norm = global_norm(grads)
+    return torch.clamp(_f32(max_norm, norm) / torch.clamp(norm, min=1e-9),
+                       max=1.0), norm
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """One leaf of ``clip_by_global_norm``'s output, in float32."""
+    return (g.to(torch.float32) * scale).to(g.dtype).to(torch.float32)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """``(grads scaled to at most max_norm, their global norm)``; each
-    leaf is scaled in float32 and cast back to its dtype."""
-    norm = global_norm(grads)
-    scale = torch.clamp(_f32(max_norm, norm)
-                        / torch.clamp(norm, min=1e-9), max=1.0)
+    leaf is scaled in float32 and cast back to its dtype.  The updates
+    apply the same scaling leaf by leaf (``_clipped``), so no second copy
+    of the grads exists."""
+    scale, norm = _clip_scale(grads, max_norm)
     return tu.tree_map(
         lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), norm
 
@@ -99,26 +117,36 @@ def adamw_init(params) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, grads, state, params):
-    """``(new params, new state, {"lr", "grad_norm"})``."""
+def adamw_update(cfg: OptConfig, grads, state, params, donate: bool = False):
+    """``(new params, new state, {"lr", "grad_norm"})``; with ``donate``
+    the new values are written into ``params`` and ``state``'s tensors."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    scale, gnorm = _clip_scale(grads, cfg.clip_norm)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)
     corr1 = 1 - _f32(b1, stepf) ** stepf
     corr2 = 1 - _f32(b2, stepf) ** stepf
 
+    # the leaf-sized float32 temporaries (a full-width qwen3-4b MLP stack is
+    # 3.6 GB in float32) are updated in place where the op is the same, and
+    # with donate the moments too
     def upd(g, mu, nu, p):
-        g = g.to(torch.float32)
-        mu = b1 * mu + (1 - b1) * g
-        nu = b2 * nu + (1 - b2) * torch.square(g)
-        mu_hat = mu / corr1
-        nu_hat = nu / corr2
-        delta = mu_hat / (torch.sqrt(nu_hat) + cfg.eps)
+        g = _clipped(g, scale)  # a new tensor
+        mu_new = (mu.mul_(b1) if donate else b1 * mu).add_((1 - b1) * g)
+        nu_new = (nu.mul_(b2) if donate else b2 * nu).add_(
+            torch.square(g).mul_(1 - b2))
+        del g
+        delta = (mu_new / corr1).div_(
+            (nu_new / corr2).sqrt_().add_(cfg.eps))
         if p.ndim >= 2:  # decay matrices only
-            delta = delta + cfg.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype), mu, nu
+            delta = delta.add_(cfg.weight_decay * p.to(torch.float32))
+        new_p = (p.to(torch.float32) - delta.mul_(lr)).to(p.dtype)
+        if not donate:
+            return new_p, mu_new, nu_new
+        del delta
+        p.copy_(new_p)
+        return p, mu, nu
 
     out = [upd(*leaf) for leaf in zip(
         tu.leaves(grads), tu.leaves(state["mu"]), tu.leaves(state["nu"]),
@@ -146,35 +174,48 @@ def adafactor_init(params) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def adafactor_update(cfg: OptConfig, grads, state, params):
-    """``(new params, new state, {"lr", "grad_norm"})``."""
+def adafactor_update(cfg: OptConfig, grads, state, params,
+                     donate: bool = False):
+    """``(new params, new state, {"lr", "grad_norm"})``; with ``donate``
+    the new values are written into ``params`` and ``state``'s tensors."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    scale, gnorm = _clip_scale(grads, cfg.clip_norm)
     decay = 1.0 - (step.to(torch.float32) + 1.0) ** -0.8
 
+    # the leaf-sized float32 temporaries are updated in place where the op
+    # is the same (a full-width grok expert stack is 6.4 GB in float32)
     def upd(g, v, p):
-        g = g.to(torch.float32)
-        g2 = torch.square(g) + 1e-30
+        g = _clipped(g, scale)  # a new tensor
+        g2 = torch.square(g).add_(1e-30)
         if p.ndim >= 2:
             vr = decay * v["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
             vc = decay * v["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
-            denom = torch.sqrt(
-                vr[..., None] * vc[..., None, :]
-                / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                              min=1e-30)[..., None])
-            delta = g / torch.clamp(denom, min=1e-30)
+            del g2
+            denom = (vr[..., None] * vc[..., None, :]).div_(
+                torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                            min=1e-30)[..., None]).sqrt_()
+            delta = g.div_(denom.clamp_(min=1e-30))
+            del denom
             new_v = {"vr": vr, "vc": vc}
         else:
             nv = decay * v["v"] + (1 - decay) * g2
             delta = g / (torch.sqrt(nv) + 1e-30)
             new_v = {"v": nv}
+        del g
         # update clipping (Adafactor's d=1.0 RMS rule)
         rms = torch.sqrt(torch.mean(torch.square(delta)) + 1e-30)
-        delta = delta / torch.clamp(rms, min=1.0)
+        delta = delta.div_(torch.clamp(rms, min=1.0))
         if p.ndim >= 2:
-            delta = delta + cfg.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * delta).to(p.dtype), new_v
+            delta = delta.add_(cfg.weight_decay * p.to(torch.float32))
+        new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        if not donate:
+            return new_p, new_v
+        del delta
+        for k, t in new_v.items():
+            v[k].copy_(t)
+        p.copy_(new_p)
+        return p, v
 
     # a leaf's second moment is a dict ({"vr", "vc"} or {"v"}): find it by
     # the leaf's path in the params
@@ -192,10 +233,13 @@ def _at(tree, path):
     return tree
 
 
-def make_optimizer(cfg: OptConfig) -> Tuple[Callable, Callable]:
-    """``(init(params), update(grads, state, params))`` of ``cfg.name``."""
+def make_optimizer(cfg: OptConfig, donate: bool = False
+                   ) -> Tuple[Callable, Callable]:
+    """``(init(params), update(grads, state, params))`` of ``cfg.name``;
+    ``donate`` updates params and state in place."""
     if cfg.name == "adamw":
-        return adamw_init, lambda g, s, p: adamw_update(cfg, g, s, p)
+        return adamw_init, lambda g, s, p: adamw_update(cfg, g, s, p, donate)
     if cfg.name == "adafactor":
-        return adafactor_init, lambda g, s, p: adafactor_update(cfg, g, s, p)
+        return adafactor_init, lambda g, s, p: adafactor_update(cfg, g, s, p,
+                                                                donate)
     raise ValueError(cfg.name)

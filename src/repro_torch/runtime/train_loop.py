@@ -32,7 +32,8 @@ class TrainArtifacts:
 
 def make_train_step(bundle: ModelBundle, device, opt_cfg: OptConfig, *,
                     microbatches: int = 1, grad_compress_int8: bool = False,
-                    qat: bool = False) -> TrainArtifacts:
+                    qat: bool = False, donate: bool = False
+                    ) -> TrainArtifacts:
     """The train step of ``bundle`` on ``device``.
 
     ``step_fn(params, opt_state, batch)`` returns ``(new params, new
@@ -43,11 +44,15 @@ def make_train_step(bundle: ModelBundle, device, opt_cfg: OptConfig, *,
     so checkpoints of either package line up.  With one micro-batch a
     gradient keeps its leaf's dtype (bf16 for the embedding and the head);
     with more they are float32 means.  The step returns new tensors and
-    leaves its inputs as they were.
+    leaves its inputs as they were; with ``donate`` (the reference's
+    default, which the train launcher takes) it writes the new params and
+    optimizer state into the ones it was given instead, the same bits, and
+    returns those.
     """
     cfg = bundle.cfg
     device = torch.device(device)
-    opt_init, opt_update = make_optimizer(opt_cfg)
+    opt_init, opt_update = (make_optimizer(opt_cfg, donate=True) if donate
+                            else make_optimizer(opt_cfg))
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
 

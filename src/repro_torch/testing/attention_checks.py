@@ -8,6 +8,15 @@ Tolerances (each check names its rule):
   own rule for its Pallas kernel, ``tests/test_kernels.py``);
 * bf16 outputs: ``|got - want| <= 2`` bf16 ulps of the row's largest
   ``|want|`` (ROADMAP Queue 3, F3), a row being the last axis;
+* the flash backward's gradients (``check_flash_bwd``, its kernel against
+  its plain version at the reference's 512-row chunks) by the same two
+  rules, a bf16 row's largest ``|want|`` taken as at least ``2**-12`` of
+  the whole gradient's (``grad_bound``): a query that attends a single key
+  has ``dp = delta`` in exact arithmetic, so its dq row is 0 and the two
+  versions' float32 rounding noise is all there is (on an H100, ~5e-7 in
+  the plain version at qwen3-4b's layer, whose dq peaks at ~3: 2 ulps of
+  such a row's own largest |want| are ~5e-10); kernel 5's row
+  log-sum-exp, float32, by the float32 rule;
 * logits of a whole bf16 model: within 1 % of the row's largest
   ``|logit|``, and the argmax equal wherever the reference's top-2 margin
   exceeds 2 % of it.  Where the reference itself spreads wider (a long
@@ -36,6 +45,107 @@ FLASH_MASKS_D256 = FLASH_MASKS + (("causal window 300", True, 300),)
 # shape and kimi's prefill layer (both with the masks of head_dim 256)
 FLASH_SHAPES_D112 = ((2, 4, 2, 300, 112), (1, 64, 8, 2048, 112))
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
+
+
+# the flash backward's check cases: (label, B, Sq, Sk, H, KVH, D, causal,
+# window, q_offset, dtype, layout).  The training layers of the models
+# that take flash attention past S 1024 (qwen3-4b, recurrentgemma-9b with
+# its window, stablelm-1.6b, kimi-k2-1t-a32b at head_dim 112), then small
+# float32 and bf16 cases: head_dim 16, queries at an offset over more keys
+# (Sq != Sk), lengths that are no multiple of any tile, q, k, v as strided
+# views of one fused projection, and unaligned rows (kernel 5's FMA form)
+FLASH_BWD_MODEL_CASES = (
+    ("qwen3-4b", 1, 4096, 4096, 32, 8, 128, True, 0, 0, torch.bfloat16,
+     "contiguous"),
+    ("recurrentgemma-9b", 1, 4096, 4096, 16, 1, 256, True, 2048, 0,
+     torch.bfloat16, "contiguous"),
+    ("stablelm-1.6b", 1, 2048, 2048, 32, 32, 64, True, 0, 0, torch.bfloat16,
+     "contiguous"),
+    ("kimi-k2-1t-a32b", 1, 2048, 2048, 64, 8, 112, True, 0, 0,
+     torch.bfloat16, "contiguous"),
+)
+FLASH_BWD_SMALL_CASES = (
+    ("D16 float32", 2, 300, 300, 4, 2, 16, True, 0, 0, torch.float32,
+     "contiguous"),
+    ("offset window float32", 1, 200, 456, 4, 1, 64, True, 100, 256,
+     torch.float32, "contiguous"),
+    ("non-causal ragged float32", 1, 333, 333, 4, 2, 128, False, 0, 0,
+     torch.float32, "contiguous"),
+    ("D256 window float32", 1, 300, 300, 4, 2, 256, True, 70, 0,
+     torch.float32, "contiguous"),
+    ("D112 ragged bf16", 1, 300, 300, 4, 2, 112, True, 0, 0, torch.bfloat16,
+     "contiguous"),
+    ("D16 offset window bf16", 1, 100, 177, 4, 4, 16, True, 40, 77,
+     torch.bfloat16, "contiguous"),
+    ("D128 strided bf16", 2, 333, 333, 8, 2, 128, True, 0, 0,
+     torch.bfloat16, "strided"),
+    ("D64 unaligned bf16", 1, 300, 300, 4, 2, 64, True, 0, 0,
+     torch.bfloat16, "unaligned"),
+)
+
+
+def flash_bwd_inputs(gen: torch.Generator, case) -> Dict[str, Any]:
+    """``q, k, v, dout`` (normal draws from ``gen``) and the mask of a
+    ``FLASH_BWD_*_CASES`` case, laid out as it says."""
+    _, B, Sq, Sk, H, KVH, D, causal, window, q_offset, dtype, layout = case
+    dev = gen.device
+    if layout == "strided":  # slices of one fused (B, S, H + 2 KVH, D)
+        qkv = torch.randn((B, Sq, H + 2 * KVH, D), generator=gen,
+                          device=dev).to(dtype)
+        q, k, v = qkv.split([H, KVH, KVH], dim=2)
+    else:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((B, Sq, H, D), (B, Sk, KVH, D),
+                                 (B, Sk, KVH, D)))
+        if layout == "unaligned":
+            q, k, v = unaligned(q), unaligned(k), unaligned(v)
+    dout = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype)
+    return dict(q=q, k=k, v=v, dout=dout, causal=causal, window=window,
+                q_offset=q_offset)
+
+
+def check_flash_bwd(label: str, q, k, v, dout, causal: bool, window: int,
+                    q_offset: int) -> Tuple[float, float]:
+    """Kernel 5's forward with ``return_lse`` on q pre-scaled in its dtype
+    (as the layer runs it), then the backward kernel, each against its
+    plain version on the same inputs: the lse at kernel 5's own tiles by
+    the float32 rule, dq, dk, dv at the reference's chunks by the rule of
+    their dtype (bf16: ``grad_bound``), the backward at each of
+    ``bwd_splits`` (its dk/dv kernel unsplit, and at the card's head
+    splits).  Returns ``(lse max|d|, gradients' max|d|)``."""
+    from ..kernels import flash_attention as FA
+
+    D = q.shape[-1]
+    scale = 1.0 / math.sqrt(D)
+    qs = (q.float() * scale).to(q.dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = FA.flash_attention(qs, k, v, scale=1.0, return_lse=True, **kw)
+    _, want_lse = FA.flash_attention_plain(
+        qs, k, v, scale=1.0, return_lse=True, **kw,
+        **FA.kernel_tiles(qs, k, v))
+    lse_err = check_close(f"{label} lse", lse, want_lse)
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, scale=scale,
+                                        **kw)
+    grad_err = 0.0
+    for splits in bwd_splits(q, k):
+        got = FA.flash_attention_bwd(q, k, v, out, lse, dout, scale=scale,
+                                     splits=splits, **kw)
+        grad_err = max([grad_err] + [
+            check_close(f"{label} splits {splits} d{name}", g, w, grad=True)
+            for name, g, w in zip("qkv", got, want)])
+    return lse_err, grad_err
+
+
+def bwd_splits(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, ...]:
+    """The head splits ``check_flash_bwd`` runs the backward kernel at: 1,
+    and the card's own (``flash_attention.dkdv_splits``) where it differs."""
+    from ..kernels import flash_attention as FA
+
+    B, _, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    auto = FA.dkdv_splits(B, Sk, KVH, H // KVH, D, torch.cuda.
+                          get_device_properties(q.device).multi_processor_count)
+    return (1,) if auto == 1 else (1, auto)
 
 
 def unaligned(t: torch.Tensor) -> torch.Tensor:
@@ -88,16 +198,28 @@ def bf16_bound(want: torch.Tensor, ulps: int = 2) -> torch.Tensor:
     return ulps * torch.exp2(torch.floor(torch.log2(top)) - 7)
 
 
-def check_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def grad_bound(want: torch.Tensor, ulps: int = 2) -> torch.Tensor:
+    """``bf16_bound`` of a gradient: each row's largest ``|want|`` taken as
+    at least ``2**-12`` of the whole tensor's."""
+    w = want.float().abs()
+    top = w.amax(-1, keepdim=True).clamp_min(
+        float(w.max()) * 2.0**-12).clamp_min(1e-30)
+    return ulps * torch.exp2(torch.floor(torch.log2(top)) - 7)
+
+
+def check_close(what: str, got: torch.Tensor, want: torch.Tensor,
+                grad: bool = False) -> float:
     """Hold ``got`` to ``want`` by the rule of their dtype (float32 or
-    bf16); raise AssertionError, else return the largest |difference|."""
+    bf16; ``grad`` takes ``grad_bound`` for bf16); raise AssertionError,
+    else return the largest |difference|."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs "
                              f"{want.dtype}{tuple(want.shape)}")
     g, w = got.float(), want.float()
     diff = (g - w).abs()
     if want.dtype == torch.bfloat16:
-        bound = bf16_bound(want).expand_as(diff)
+        bound = (grad_bound(want) if grad else bf16_bound(want)).expand_as(
+            diff)
     else:
         bound = 2e-5 + 2e-5 * w.abs()
     bad = ~(diff <= bound)  # NaN counts as bad

@@ -187,7 +187,8 @@ def test_serve_smoke_launches_each_kernel_per_layer_and_step(cuda):
     expect = cfg.n_layers * (1 + 3)
     assert res.launches == {"int8_matmul": expect, "quant_lstm_scan": expect,
                             "quant_gru_scan": 0, "int_layernorm": 0,
-                            "quant_lstm_cell": 0, "flash_attention": 0}
+                            "quant_lstm_cell": 0, "flash_attention": 0,
+                            "flash_attention_bwd": 0}
     assert tuple(res.tokens.shape) == (2, 3)
 
 
@@ -690,10 +691,39 @@ def test_train_step_card_matches_cpu(cuda, arch, qat):
     assert serve.launch_counts() == before  # no kernel in a train step
 
 
-def test_flash_kernel_refuses_grad(cuda):
+def test_flash_layer_grad_on_card_matches_cpu(cuda):
+    """The attention layer under autograd on the card (kernel 5 writing
+    the lse, then the backward kernel, one launch each) against the CPU,
+    by ``train_checks``' rule."""
     from repro_torch.testing import train_checks as TC
 
-    assert "ROADMAP" in TC.flash_refuses_grad(cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = TC.flash_grad_card_against_cpu(cuda)
+    assert set(errs) == {"out", "dq", "dk", "dv"}
+
+
+@pytest.mark.parametrize("which", ["qwen3-4b", "small"])
+def test_flash_bwd_kernel_matches_plain(cuda, which):
+    """The backward kernel (and kernel 5's lse) against their plain
+    versions: a qwen3-4b training layer (B 1, H 32 over 8 KV heads, S
+    4096, D 128, causal, bf16), and the small float32 / bf16 cases of
+    ``attention_checks`` (head_dim 16 to 256, Sq != Sk at an offset,
+    windows, ragged lengths, strided and unaligned rows); the dk/dv kernel
+    unsplit and at the card's head splits, one backward launch each."""
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.testing import attention_checks as AC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cases = (AC.FLASH_BWD_MODEL_CASES[:1] if which == "qwen3-4b"
+             else AC.FLASH_BWD_SMALL_CASES)
+    for case in cases:
+        before = KF.backward.launches
+        kw = AC.flash_bwd_inputs(gen, case)
+        AC.check_flash_bwd(case[0], **kw)
+        torch.cuda.synchronize()
+        assert KF.backward.launches == before + len(
+            AC.bwd_splits(kw["q"], kw["k"]))
 
 
 def test_checkpoint_roundtrip_on_card(cuda, tmp_path):

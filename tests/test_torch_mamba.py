@@ -38,8 +38,8 @@ from repro_torch.testing.attention_checks import (  # noqa: E402
     check_close, check_logits)
 from torch_family_checks import (  # noqa: E402
     NO_CONSTRAIN, bf16_pair, check_cli, check_decode, check_loss,
-    check_round_trip, check_serve_bundle, close_f32, leaf_names,
-    quantized_pair, reference_params, t, tokens, widened)
+    check_loss_and_grads, check_round_trip, check_serve_bundle, close_f32,
+    leaf_names, quantized_pair, reference_params, t, tokens, widened)
 
 torch.set_num_threads(1)
 
@@ -171,6 +171,15 @@ def test_decode_matches_reference_and_prefill(model, quant):
 def test_loss_matches_reference(model, dtype):
     cfg, tcfg, params, _ = model
     check_loss(cfg, tcfg, params, dtype)
+
+
+def test_loss_and_grads_match_reference(model):
+    """The loss and every gradient through the selective scan, against
+    ``jax.value_and_grad`` of the jitted reference on float32 weights."""
+    cfg, tcfg, params, _ = model
+    batch = {"tokens": tokens(cfg.vocab_size, 1, 16, seed=31),
+             "labels": tokens(cfg.vocab_size, 1, 16, seed=32)}
+    check_loss_and_grads(cfg, tcfg, params, batch)
 
 
 @pytest.mark.parametrize("quant", ["none", "int8"])

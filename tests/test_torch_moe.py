@@ -52,9 +52,9 @@ from repro_torch.runtime import train_loop  # noqa: E402
 from repro_torch.testing.attention_checks import (  # noqa: E402
     check_close, check_logits)
 from torch_family_checks import (  # noqa: E402
-    NO_CONSTRAIN, check_cli, check_decode, check_round_trip,
-    check_serve_bundle, close_f32, quantized_pair, reference_params, t,
-    tokens)
+    NO_CONSTRAIN, check_cli, check_decode, check_loss_and_grads,
+    check_round_trip, check_serve_bundle, close_f32, quantized_pair,
+    reference_params, t, tokens)
 
 torch.set_num_threads(1)
 
@@ -233,6 +233,28 @@ def test_forward_and_prefill_match_reference(model, dtype):
     else:
         check_logits(f"{cfg.name} forward", got, t(want))
         check_logits(f"{cfg.name} prefill", last, t(want)[:, -1])
+
+
+def test_loss_and_grads_match_reference(model):
+    """Training's loss (cross-entropy plus ``0.01 *`` the MoE layers'
+    auxiliary load-balancing loss) and every gradient, through the experts,
+    the router's softmax and the aux, against ``jax.value_and_grad`` of
+    the jitted reference ``loss_fn`` on float32 weights; the aux is
+    positive and enters the loss."""
+    cfg, tcfg, params, t_params = model
+    batch = {"tokens": tokens(cfg.vocab_size, 2, 16, seed=17),
+             "labels": tokens(cfg.vocab_size, 2, 16, seed=18)}
+    check_loss_and_grads(cfg, tcfg, params, batch)
+    with torch.no_grad():
+        logits, aux = TT._forward(t_params, tcfg,
+                                  torch.from_numpy(batch["tokens"]), None,
+                                  True)
+        loss = TZ.build(tcfg).loss(t_params, {
+            k: torch.from_numpy(v) for k, v in batch.items()})
+    assert float(aux) > 0
+    ce = loss - 0.01 * aux
+    assert abs(float(ce) - float(TT.emb.cross_entropy(
+        logits, torch.from_numpy(batch["labels"])))) <= 1e-6
 
 
 @pytest.mark.parametrize("quant", ["bf16", "int8"])

@@ -219,6 +219,33 @@ def test_optimizers_reduce_loss(name):
     assert losses[-1] < 0.05 * losses[0], (name, losses[0], losses[-1])
 
 
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_donated_update_writes_the_same_bits_in_place(name):
+    """``donate=True`` writes each leaf's new param and state into the
+    tensors it was given (the reference's donated buffers): over 4 steps
+    with clipping the same bits as the update that returns new tensors,
+    and the returned trees hold the given tensors."""
+    rng = np.random.default_rng(5)
+    cfg = TO.OptConfig(name=name, lr=3e-3, warmup_steps=2, total_steps=9,
+                       clip_norm=0.5)
+    init, update = TO.make_optimizer(cfg)
+    _, donated = TO.make_optimizer(cfg, donate=True)
+    params = convert.params_from_numpy(_tree(rng))
+    mine = tu.tree_map(torch.clone, params)
+    state, my_state = init(params), init(mine)
+    for _ in range(4):
+        grads = convert.params_from_numpy(_tree(rng, 3.0))
+        params, state, m = update(grads, state, params)
+        given = dict(tu.leaves_with_paths((mine, my_state)))
+        mine, my_state, my_m = donated(grads, my_state, mine)
+        assert all(t is given[path] for path, t in tu.leaves_with_paths(
+            (mine, my_state)) if "step" not in path)
+        assert all(torch.equal(a, b) for a, b in zip(
+            tu.leaves((params, state)), tu.leaves((mine, my_state)),
+            strict=True))
+        assert torch.equal(m["grad_norm"], my_m["grad_norm"])
+
+
 def test_grad_compression_error_feedback_converges():
     opt_cfg = TO.OptConfig(name="adamw", lr=0.05, warmup_steps=1,
                            total_steps=200, weight_decay=0.0)

@@ -17,8 +17,22 @@ Rules:
 * training reduces the loss as ``test_system.py`` requires of the
   reference, from the reference's weights (the same test);
 * ``launch/train.py --device cpu`` resumes from its checkpoint to the
-  loss an uninterrupted run reaches, bit for bit.
+  loss an uninterrupted run reaches, bit for bit;
+* past S 1024 (flash attention, through ``layers.attention.
+  FlashAttention``) the dense loss and every gradient equal
+  ``jax.value_and_grad`` of the jitted reference on float32 weights
+  (``torch_family_checks.check_loss_and_grads``); on the bf16 weights
+  every gradient equals the reference's, and the port's flash gradients
+  its full attention's, within 2 % of the leaf's largest |gradient| or
+  the reference's own flash-vs-full gap where that is larger (ROADMAP
+  F12); a bf16 train step's loss and grad_norm equal the reference's
+  within ``train_checks.BF16_RTOL`` (the repo's rule for a bf16
+  transformer step; ROADMAP T7: losses and norms, never Adam-updated
+  params);
+* per-layer remat (``cfg.remat="full"``) changes no bit of the loss or of
+  any gradient.
 """
+import dataclasses
 import functools
 import os
 import subprocess
@@ -44,7 +58,11 @@ from repro_torch.models import model_zoo as TZ  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.optim import optimizers as TO  # noqa: E402
 from repro_torch.runtime import train_loop as TTL  # noqa: E402
+from repro_torch.testing import train_checks as TCK  # noqa: E402
 from test_torch_recurrent import compile_all  # noqa: E402
+from torch_family_checks import (  # noqa: E402
+    check_loss_and_grads, flash_full_grads, leaf_gaps, loss_and_grads,
+    worst_gaps)
 
 torch.set_num_threads(1)
 
@@ -202,14 +220,61 @@ def test_dense_loss_matches_reference(name):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
-def test_dense_loss_differentiates_past_flash(monkeypatch):
-    """At S 1100 (> 1024: every layer runs the plain flash version on the
-    CPU) autograd gives the gradients it gives through full attention."""
+FLASH_S = 1100  # > 1024: every attention layer runs flash attention
+# the bf16 flash checks' batches: the first six of the SyntheticLM stream
+BF16_BATCHES = 6
+# the bf16 flash checks' floor: 2 % of a leaf's largest |gradient|
+BF16_GRAD_FLOOR = 0.02
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_flash_full():
+    """``torch_family_checks.flash_full_grads`` of the smoke dense model
+    from the reference's bf16 weights, at S 1100 over ``BF16_BATCHES``
+    batches, and its paths' order."""
+    name = "qwen1.5-0.5b"
+    cfg = JRG.get_config(name, smoke=True)
+    jparams, params = _reference_init(name)
+    runs = flash_full_grads(cfg, TRG.get_config(name, smoke=True), jparams,
+                            params, _batches(cfg, BF16_BATCHES, batch=1,
+                                             seq=FLASH_S))
+    return runs, [p for p, _ in tu.leaves_with_paths(params)]
+
+
+def _bf16_bounds():
+    """Each leaf's bf16 bound: the larger of ``BF16_GRAD_FLOOR`` and the
+    reference's own largest gap between its flash and its full attention
+    over the batches (bf16 rounding noise: the embedding's gradient, added
+    position by position in bf16, turns a last-bit difference upstream
+    into up to 2.4 % of its largest element; ROADMAP F12)."""
+    runs, _ = _bf16_flash_full()
+    return [max(BF16_GRAD_FLOOR, g) for g in worst_gaps(
+        runs, ("ref", "flash"), ("ref", "full"))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_loss_differentiates_past_flash(dtype, monkeypatch):
+    """At S 1100 (> 1024: every layer runs flash attention, whose
+    gradient is ``FlashAttention``'s, the reference's VJP, on the CPU)
+    the gradients equal those through full attention (autograd of the
+    direct product).  On float32 weights, where the point is the
+    algorithm: each leaf within 1e-4 of its largest |gradient|.  On the
+    bf16 weights: each leaf, over ``BF16_BATCHES`` batches, within
+    ``_bf16_bounds`` (2 % of its largest |gradient|, or the reference's own
+    flash-vs-full gap where that is larger)."""
     name = "qwen1.5-0.5b"
     cfg = TRG.get_config(name, smoke=True)
-    params = _reference_init(name)[1]
+    if dtype == "bfloat16":
+        runs, paths = _bf16_flash_full()
+        assert all(bool(torch.isfinite(g).all())
+                   for leaves in runs["port", "flash"] for g in leaves)
+        got = worst_gaps(runs, ("port", "flash"), ("port", "full"))
+        for path, gap, bound in zip(paths, got, _bf16_bounds(), strict=True):
+            assert gap <= bound, (path, gap, bound)
+        return
+    params = tu.tree_map(lambda t: t.float(), _reference_init(name)[1])
     b = {k: torch.from_numpy(v) for k, v in
-         _batches(cfg, 1, batch=1, seq=1100)[0].items()}
+         _batches(cfg, 1, batch=1, seq=FLASH_S)[0].items()}
     grads = {}
     for flash_min in (TT.FLASH_MIN_SEQ, 10**9):
         monkeypatch.setattr(TT, "FLASH_MIN_SEQ", flash_min)
@@ -217,12 +282,78 @@ def test_dense_loss_differentiates_past_flash(monkeypatch):
         loss = TT.loss_fn(tu.unflatten(params, flat), cfg, b)
         grads[flash_min] = torch.autograd.grad(loss, flat)
     for g_flash, g_full in zip(*grads.values(), strict=True):
-        g_flash, g_full = g_flash.float(), g_full.float()
         assert bool(torch.isfinite(g_flash).all())
-        # bf16 activations round differently along the two paths: 2 % of
-        # the leaf's largest |gradient|
         assert (g_flash - g_full).abs().max() <= \
-            0.02 * g_full.abs().max()
+            1e-4 * g_full.abs().max()
+
+
+def test_dense_bf16_grads_past_flash_match_reference():
+    """S 1100 on the reference's bf16 weights: each leaf's gradient
+    through ``FlashAttention`` against ``jax.value_and_grad`` of the jitted
+    reference ``loss_fn`` (its custom VJP), batch by batch over
+    ``BF16_BATCHES`` batches, within ``_bf16_bounds``: the port differs
+    from the reference by no more than 2 % of the leaf's largest
+    |gradient|, or than the reference's two attention paths differ from
+    each other."""
+    runs, paths = _bf16_flash_full()
+    bounds = _bf16_bounds()
+    for i, (got, want) in enumerate(zip(runs["port", "flash"],
+                                        runs["ref", "flash"], strict=True)):
+        for path, gap, bound in zip(paths, leaf_gaps(got, want), bounds,
+                                    strict=True):
+            assert gap <= bound, (i, path, gap, bound)
+
+
+def test_dense_loss_and_grads_past_flash_match_reference():
+    """S 1100: the loss and every gradient (the backward through
+    ``FlashAttention`` in both layers) against ``jax.value_and_grad`` of
+    the jitted reference ``loss_fn`` on the same float32 weights."""
+    name = "qwen1.5-0.5b"
+    cfg = JRG.get_config(name, smoke=True)
+    batch = _batches(cfg, 1, batch=1, seq=FLASH_S)[0]
+    check_loss_and_grads(cfg, TRG.get_config(name, smoke=True),
+                         _reference_init(name)[0], batch)
+
+
+def test_train_step_past_flash_matches_reference():
+    """One AdamW step at S 1100 from the reference's bf16 weights: the
+    loss and grad_norm against the reference's jitted step (T7)."""
+    name = "qwen1.5-0.5b"
+    cfg = JRG.get_config(name, smoke=True)
+    jparams, params = _reference_init(name)
+    batch = _batches(cfg, 1, batch=1, seq=FLASH_S)[0]
+    jart = JTL.make_train_step(JZ.build(cfg), None, JO.OptConfig(**OPT),
+                               donate=False)
+    _, _, want = jax.jit(jart.step_fn)(
+        jparams, jart.init_opt(jparams),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    art = TTL.make_train_step(TZ.build(TRG.get_config(name, smoke=True)),
+                              "cpu", TO.OptConfig(**OPT))
+    _, _, got = art.step_fn(params, art.init_opt(params), batch)
+    for key in ("loss", "grad_norm"):
+        g, w = float(got[key]), float(want[key])
+        assert abs(g - w) <= TCK.BF16_RTOL * abs(w), (key, g, w)
+
+
+@pytest.mark.parametrize("name,seq", [("qwen1.5-0.5b", FLASH_S),
+                                      ("grok-1-314b", 32),
+                                      ("falcon-mamba-7b", 16)])
+def test_remat_changes_no_bit(name, seq):
+    """``cfg.remat="full"`` (each layer under ``torch.utils.checkpoint``,
+    recomputed in the backward) against ``"none"``: the loss and every
+    gradient equal bit for bit (the dense model past S 1024, where the
+    recomputed layers run flash attention again; the MoE model with its
+    aux; the Mamba stack)."""
+    cfg = TRG.get_config(name, smoke=True)
+    params = _reference_init(name)[1]
+    batch = _batches(cfg, 1, batch=1, seq=seq)[0]
+    runs = [loss_and_grads(dataclasses.replace(cfg, remat=remat), params,
+                           batch) for remat in ("none", "full")]
+    (l0, g0), (l1, g1) = runs
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1, strict=True))
+    with pytest.raises(NotImplementedError, match="dots"):
+        loss_and_grads(dataclasses.replace(cfg, remat="dots"), params, batch)
 
 
 def _cli(*args, ckpt):

@@ -18,6 +18,7 @@ and teacher-forced ``decode_step`` with a bf16 and an int8 KV cache.
 """
 import contextlib
 import io
+import math
 
 import numpy as np
 import pytest
@@ -207,17 +208,26 @@ def test_vlm_prefill_with_frontend_embeds():
 
 
 def test_unported_families_raise():
-    """Every family of the registry builds; what stays unported is MoE
-    training (the auxiliary load-balancing loss, ROADMAP Queue 1 item 9):
-    the MoE bundles' ``loss`` raises (their serving has its own test file,
-    ``test_torch_moe.py``, as whisper-tiny, falcon-mamba-7b and
-    recurrentgemma-9b have theirs)."""
+    """Every family of the registry builds, and the MoE bundles train on
+    one device: their ``loss`` is a finite scalar that holds ``0.01 *`` the
+    auxiliary load-balancing loss over the cross-entropy (their parity
+    with the reference is ``test_torch_moe.py``'s, as whisper-tiny,
+    falcon-mamba-7b and recurrentgemma-9b have theirs).  What stays
+    unported is the expert-parallel ``shard_map`` branch (ROADMAP Queue 1
+    item 9), which no one-device path reaches."""
     for name in ("kimi-k2-1t-a32b", "grok-1-314b"):
         cfg = TR.get_config(name, smoke=True)
         bundle = TZ.build(cfg)
-        toks = torch.zeros((1, 4), dtype=torch.long)
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            bundle.loss({}, {"tokens": toks, "labels": toks})
+        params = bundle.init(torch.Generator().manual_seed(0), "cpu")
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 8)))
+        with torch.no_grad():
+            loss = bundle.loss(params, {"tokens": toks, "labels": toks})
+            logits, aux = TT._forward(params, cfg, toks, None, True)
+        assert loss.dim() == 0 and bool(torch.isfinite(loss))
+        assert float(aux) > 0
+        ce = TT.emb.cross_entropy(logits, toks)
+        assert torch.equal(loss, ce + 0.01 * aux)
 
 
 # --- modules -----------------------------------------------------------------
@@ -286,6 +296,26 @@ def test_activations_equal_the_jitted_reference():
                 assert torch.equal(got, _t(want))
             else:
                 _close_f32(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_silu_gradient_past_exp_overflow(dtype):
+    """SiLU's gradient equals ``jax.grad`` of ``jax.nn.silu`` (the
+    logistic's derivative ``s (1 - s)``) from -200 to 200: finite where
+    ``exp(-x)`` overflows (x < -88), which autograd of ``1 / (1 +
+    exp(-x))`` turns into NaN.  float32 within 1e-6 of the largest |ref|;
+    bf16 within 2 bf16 ulps of it."""
+    a = np.linspace(-200, 200, 4001).astype(np.float32)
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dtype]
+    jx = jnp.asarray(a).astype(jdt)
+    want = _t(jax.jit(jax.vmap(jax.grad(jax.nn.silu)))(jx))
+    x = _t(jx).requires_grad_(True)
+    got, = torch.autograd.grad(TM.silu(x).sum(), x)
+    assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+    top = float(want.float().abs().max())
+    bound = 1e-6 * top if dtype == "f32" else 2 * 2.0**(
+        math.floor(math.log2(top)) - 7)
+    assert float((got.float() - want.float()).abs().max()) <= bound
 
 
 @pytest.mark.parametrize("kind", ["swiglu", "geglu", "gelu"])

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro.launch import serve as jserve
+from repro.layers import attention as JA
 from repro.models import model_zoo as JZ
 from repro.models import quant_transformer as JQT
 from repro_torch import convert
@@ -25,6 +26,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.layers import qmm as TQ
 from repro_torch.models import model_zoo as TZ
 from repro_torch.models import quant_transformer as TQT
+from repro_torch.models import transformer as TT
 from repro_torch.testing.attention_checks import check_logits
 from repro_torch.testing.train_checks import BF16_RTOL
 
@@ -228,3 +230,127 @@ def check_round_trip(params, t_params):
     assert qlayers == []
     check_tree_equal(moved, t_params)
     assert all(a is b for a, b in zip(tu.leaves(moved), tu.leaves(t_params)))
+
+
+def loss_and_grads(tcfg, t_params, batch):
+    """The port's loss of ``batch`` (numpy) and ``torch.autograd.grad`` of
+    it with respect to every leaf of ``t_params`` (in ``tree_util.leaves``
+    order, which is ``jax.tree_util``'s)."""
+    flat = [p.detach().requires_grad_(True) for p in tu.leaves(t_params)]
+    loss = TZ.build(tcfg).loss(tu.unflatten(t_params, flat), {
+        k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()})
+    return loss, torch.autograd.grad(loss, flat)
+
+
+def check_loss_and_grads(cfg, tcfg, params, batch, grad_tol=1e-4):
+    """The bundle's loss and its gradients against ``jax.value_and_grad`` of
+    the jitted reference loss, both on the float32 copy of ``params``: the
+    loss within the float32 rule (rtol 1e-5), each leaf's gradient within
+    ``grad_tol`` of that leaf's largest |ref| (the two sum the backward's
+    float32 products in other orders).  Returns the largest such relative
+    difference."""
+    params = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), params)
+    t_params = convert.params_from_numpy(jax.device_get(params))
+    jb = JZ.build(cfg)
+    want, want_grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jb.loss(p, b, NO_CONSTRAIN)))(
+            params, {k: jnp.asarray(v) for k, v in batch.items()})
+    got, grads = loss_and_grads(tcfg, t_params, batch)
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    worst = 0.0
+    for g, w in zip(grads, jax.tree_util.tree_leaves(want_grads),
+                    strict=True):
+        w = torch.from_numpy(np.array(w))
+        rel = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        assert rel <= grad_tol, (rel, tuple(w.shape))
+        worst = max(worst, rel)
+    return worst
+
+
+def leaf_gaps(got, want):
+    """Each leaf's largest |got - want| over its largest |want|."""
+    return [float((g.float() - w.float()).abs().max()
+                  / w.float().abs().max().clamp_min(1e-30))
+            for g, w in zip(got, want, strict=True)]
+
+
+def flash_full_grads(cfg, tcfg, jparams, t_params, batches):
+    """The dense loss's gradients (float32 copies of the leaves', in
+    ``tree_util.leaves`` order) at each of ``batches`` (numpy; S past 1024)
+    on the params as they are (bf16), in the port and in the jitted
+    reference, each through flash attention and through full attention:
+    ``{(side, path): [leaves per batch]}`` with side ``"port"`` or
+    ``"ref"`` and path ``"flash"`` or ``"full"``.  The port takes full
+    attention with ``transformer.FLASH_MIN_SEQ`` raised past S, the
+    reference with its ``flash_attention`` swapped for ``full_attention``
+    while it traces (its own module is left as it was)."""
+    jb = JZ.build(cfg)
+    out = {}
+    for path in ("flash", "full"):
+        fn = jax.jit(jax.value_and_grad(
+            lambda p, b: jb.loss(p, b, NO_CONSTRAIN)))
+        flash, flash_min = JA.flash_attention, TT.FLASH_MIN_SEQ
+        if path == "full":
+            JA.flash_attention = (lambda q, k, v, causal=True, window=0:
+                                  JA.full_attention(q, k, v, causal=causal,
+                                                    window=window))
+            TT.FLASH_MIN_SEQ = 10**9
+        try:
+            out["ref", path] = [
+                [torch.from_numpy(np.array(g.astype(jnp.float32)))
+                 for g in jax.tree_util.tree_leaves(fn(jparams, {
+                     k: jnp.asarray(v) for k, v in b.items()})[1])]
+                for b in batches]
+            out["port", path] = [[g.float() for g in loss_and_grads(
+                tcfg, t_params, b)[1]] for b in batches]
+        finally:
+            JA.flash_attention, TT.FLASH_MIN_SEQ = flash, flash_min
+    return out
+
+
+def worst_gaps(runs, a, b):
+    """Per leaf, the largest ``leaf_gaps`` of run ``a`` against run ``b``
+    over the batches of ``flash_full_grads``' ``runs``."""
+    return [max(col) for col in zip(*(leaf_gaps(x, y) for x, y in zip(
+        runs[a], runs[b], strict=True)))]
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=src python tests/torch_family_checks.py [THREADS]: the
+    # bf16 gaps of tests/test_torch_train.py's flash checks, batch by
+    # batch, the port on THREADS CPU threads (1, as the tests run it)
+    import sys
+
+    from repro.configs import registry as JRG
+    from repro_torch.configs import registry as TRG
+    from repro_torch.data import pipeline as TDATA
+
+    torch.set_num_threads(int(sys.argv[1]) if len(sys.argv) > 1 else 1)
+    name, n_batches, seq = "qwen1.5-0.5b", 6, 1100
+    cfg = JRG.get_config(name, smoke=True)
+    jparams, _ = JZ.build(cfg).init(jax.random.PRNGKey(0))
+    t_params = convert.params_from_numpy(jax.device_get(jparams))
+    data = TDATA.SyntheticLM(TDATA.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=1))
+    runs = flash_full_grads(cfg, TRG.get_config(name, smoke=True), jparams,
+                            t_params, [data.batch_at(i)
+                                       for i in range(n_batches)])
+    paths = ["/".join(p) for p, _ in tu.leaves_with_paths(t_params)]
+    pairs = ((("port", "flash"), ("port", "full")),
+             (("ref", "flash"), ("ref", "full")),
+             (("port", "flash"), ("ref", "flash")),
+             (("port", "full"), ("ref", "full")))
+    print(f"{name} smoke, bf16, S {seq}, the port on "
+          f"{torch.get_num_threads()} threads: each leaf's largest |a - b| "
+          f"over its largest |b|; batch by batch: embedding / worst other "
+          f"leaf")
+    for a, b in pairs:
+        cells = []
+        for x, y in zip(runs[a], runs[b]):
+            g = leaf_gaps(x, y)
+            cells.append(f"{g[0]:.4f} / {max(g[1:]):.4f}")
+        print(f"{'-'.join(a)} vs {'-'.join(b)}: " + ", ".join(cells))
+    for a, b in pairs[:2]:
+        print(f"worst over the batches, {'-'.join(a)} vs {'-'.join(b)}: "
+              + ", ".join(f"{p} {g:.4f}" for p, g in zip(
+                  paths, worst_gaps(runs, a, b))))
