@@ -106,7 +106,10 @@
    card against the CPU (``testing/train_checks.py``); then training past
    S 1024 (``train_attention``): the flash backward kernel against its
    plain version (its dk/dv kernel unsplit and at the card's head
-   splits), and kernel 5's lse against its plain version's, at the
+   splits, each call made twice with the same bits; aligned bf16 at
+   head_dim 64 to 256 in its tensor-core form, the rest in its FMA form,
+   each case printing the form and tiles it took), and kernel 5's lse
+   against its plain version's, at the
    training layers of qwen3-4b (B 1, H 32 over 8 KV heads, S 4096, D 128,
    bf16), recurrentgemma-9b (H 16 over 1, D 256, window 2048),
    stablelm-1.6b (H 32, D 64, S 2048) and kimi-k2-1t-a32b (H 64 over 8, D
@@ -212,8 +215,9 @@
    the recurrentgemma-9b and the kimi-k2-1t-a32b prefill layers' shapes,
    recurrentgemma's bound counting only the keys inside the window,
    scaled_dot_product_attention; the flash backward at the qwen3-4b and
-   recurrentgemma-9b training layers, beside the backward of
-   scaled_dot_product_attention; for kernels 2 and 3, the step
+   recurrentgemma-9b training layers, its tensor-core form at every head
+   split beside its FMA form on the same values in unaligned rows and the
+   backward of scaled_dot_product_attention; for kernels 2 and 3, the step
    entries and the TPU-contract entries at B 4, H 2048, beside the
    method's launch floor, and launches x (ms - bound) over the stepwise
    pass); and the sequence kernels' grid barrier alone;
@@ -1501,28 +1505,34 @@ def check_flash_bwd_cases(dev):
     ``attention_checks.FLASH_BWD_MODEL_CASES`` and ``FLASH_BWD_SMALL_CASES``
     (``attention_checks.check_flash_bwd``: float32 within 2e-5 + 2e-5
     |ref|, bf16 within 2 ulps of the row's largest |ref|, the lse by the
-    float32 rule).  Returns the largest |d| of the lse and of the
-    gradients by dtype."""
+    float32 rule; each call made twice, with the same bits), printing the
+    form and tiles each case took.  Returns the largest |d| of the lse and
+    of the gradients by dtype, and each case's result."""
     import torch
     from repro_torch.testing import attention_checks as AC
 
     gen = torch.Generator(device=dev).manual_seed(23)
-    out = {"lse": 0.0, "float32": 0.0, "bfloat16": 0.0}
+    out = {"lse": 0.0, "float32": 0.0, "bfloat16": 0.0, "cases": []}
     for case in AC.FLASH_BWD_MODEL_CASES + AC.FLASH_BWD_SMALL_CASES:
         label, B_, Sq, Sk, H, KVH, D, causal, window, q_offset, dtype, \
             layout = case
         t0 = time.perf_counter()
         kw = AC.flash_bwd_inputs(gen, case)
-        lse_err, grad_err = AC.check_flash_bwd(label, **kw)
+        res = AC.check_flash_bwd(label, **kw)
         torch.cuda.synchronize()
         dt = str(dtype).split(".")[-1]
-        out["lse"] = max(out["lse"], lse_err)
-        out[dt] = max(out[dt], grad_err)
+        out["lse"] = max(out["lse"], res["lse_err"])
+        out[dt] = max(out[dt], res["grad_err"])
+        form = "tensor-core" if res["tensor_cores"] else "FMA"
+        out["cases"].append(dict(res, label=label, splits=list(res["splits"])))
         log(f"[train] flash backward {label} (B {B_} Sq {Sq} Sk {Sk} H {H} "
             f"KVH {KVH} D {D} causal {causal} window {window} q_offset "
-            f"{q_offset} {dt} {layout}): lse max|d| {lse_err:.3g}, dq/dk/dv "
-            f"max|d| {grad_err:.3g}, within tolerance of the plain versions "
-            f"({time.perf_counter() - t0:.1f}s)")
+            f"{q_offset} {dt} {layout}): {form} form (dk/dv {res['dkdv_keys']}"
+            f" keys x {res['dkdv_rows']} rows, dq {res['dq_rows']} rows x "
+            f"{res['dq_keys']} keys) at splits {res['splits']}, each twice "
+            f"with the same bits; lse max|d| {res['lse_err']:.3g}, dq/dk/dv "
+            f"max|d| {res['grad_err']:.3g}, within tolerance of the plain "
+            f"versions ({time.perf_counter() - t0:.1f}s)")
         del kw
     return out
 
@@ -1551,7 +1561,8 @@ def _expected_flash(cfg, n_attn, steps=1):
 STEP_GROUPS = (
     ("flash forward (kernel 5)", ("flash_kernel", "flash_wgmma_kernel")),
     ("flash backward", ("delta_kernel", "dkdv_kernel", "dkdv_sum_kernel",
-                        "dq_kernel")),
+                        "dq_kernel", "delta_lse_kernel", "dkdv_wgmma_kernel",
+                        "dq_wgmma_kernel")),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
 )
 
@@ -1576,6 +1587,7 @@ def profile_train_step(res, step):
     _finite_run("profiled step", [float(m["loss"])], [float(m["grad_norm"])])
     groups = {name: {"ms": 0.0, "launches": 0} for name, _ in STEP_GROUPS}
     groups["other"] = {"ms": 0.0, "launches": 0}
+    bwd = {}  # the flash backward's device ms and launches by kernel
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1583,6 +1595,11 @@ def profile_train_step(res, step):
                      if any(w in e.key for w in words)), "other")
         groups[name]["ms"] += e.self_device_time_total / 1e3
         groups[name]["launches"] += e.count
+        if name == "flash backward":
+            word = max((w for w in dict(STEP_GROUPS)[name] if w in e.key),
+                       key=len)
+            ms, n = bwd.get(word, (0.0, 0))
+            bwd[word] = (ms + e.self_device_time_total / 1e3, n + e.count)
     busy_ms = sum(g["ms"] for g in groups.values())
     others = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                      for e in prof.key_averages()
@@ -1597,9 +1614,12 @@ def profile_train_step(res, step):
         f"{prof_wall_s * 1e3:.1f} ms under the profiler); by kernel: "
         + ", ".join(f"{g} {v['ms']:.1f} ms in {v['launches']} launches"
                     for g, v in groups.items())
+        + "; the flash backward by kernel: " + ", ".join(
+            f"{w} {ms:.1f} ms in {n}" for w, (ms, n) in sorted(bwd.items()))
         + "; the most of the rest: " + "; ".join(
             f"{ms:.1f} ms in {n} x {name[:90]}" for ms, n, name in others))
-    return {"groups": groups, "busy_ms": busy_ms, "step_wall_s": wall_s,
+    return {"groups": groups, "flash_backward_by_kernel": bwd,
+            "busy_ms": busy_ms, "step_wall_s": wall_s,
             "busy_share": share, "profiled_wall_s": prof_wall_s,
             "top_other": [{"ms": ms, "launches": n, "kernel": name}
                           for ms, n, name in others]}
@@ -2583,15 +2603,20 @@ def flash_bwd_bound(B, H, KVH, S, D, window=0):
 
 def time_flash_bwd(dev):
     """Device ms of the flash backward kernel at each ``FLASH_BWD_TIMED``
-    shape (bf16, causal; the saved out and lse from kernel 5), beside its
-    plain version, its bound and the backward of
+    shape (bf16, causal; the saved out and lse from kernel 5): its
+    tensor-core form at the card's head splits and at each split, and its
+    FMA form on the same values in unaligned rows (``attention_checks.
+    unaligned``: the form the inputs choose, no switch) at the FMA form's
+    own splits, beside its plain version, its bound and the backward of
     ``scaled_dot_product_attention`` (autograd through it at the same
     shape, the backward alone timed: the library yardstick, never used by
     the port)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.testing import attention_checks as AC
 
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     iters = 5
     rows = []
     for shape in FLASH_BWD_TIMED:
@@ -2606,14 +2631,23 @@ def time_flash_bwd(dev):
         out, lse = FA.flash_attention(qs, k, v, scale=1.0, window=window,
                                       return_lse=True)
         kw = dict(window=window, scale=scale)
+        fma_in = [AC.unaligned(t) for t in (q, k, v, out)] + [lse] + [
+            AC.unaligned(dout)]
         row = dict(shape, causal=True, dtype="bfloat16")
-        row["ms"], row["host_ms"] = cold_ms(
-            lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout, **kw),
-            iters, flush)
-        row["splits"] = FA.dkdv_splits(
-            Bq, S, KVH, H // KVH, D,
-            torch.cuda.get_device_properties(dev).multi_processor_count)
-        # the dk/dv kernel at each head split (1: as it ran before them)
+        for name, ins in (("tensor_cores", (q, k, v, out, lse, dout)),
+                          ("fma", fma_in)):
+            tiles = FA.backward_tiles(*ins[:4], ins[5])
+            if tiles["tensor_cores"] != (name == "tensor_cores"):
+                raise AssertionError(f"flash backward timing: {name} inputs "
+                                     f"take the other form ({tiles})")
+            row[f"{name}_splits"] = FA.dkdv_splits(
+                Bq, S, KVH, H // KVH, tiles["dkdv_keys"], sms)
+            row[f"{name}_ms"], row[f"{name}_host_ms"] = cold_ms(
+                lambda: FA.flash_attention_bwd(*ins, **kw), iters, flush)
+        row["ms"], row["host_ms"] = row["tensor_cores_ms"], \
+            row["tensor_cores_host_ms"]
+        row["splits"] = row["tensor_cores_splits"]
+        # the tensor-core form's dk/dv kernel at each head split
         row["split_ms"] = {
             n: cold_ms(lambda: FA.flash_attention_bwd(
                 q, k, v, out, lse, dout, splits=n, **kw), iters, flush)[0]
@@ -2639,15 +2673,16 @@ def time_flash_bwd(dev):
         row["bound_ms"], row["bound_by"], row["bytes_ms"] = flash_bwd_bound(
             Bq, H, KVH, S, D, window)
         log(f"[time] flash_attention_bwd B={Bq} H={H} KVH={KVH} S={S} D={D} "
-            f"causal window={window} bf16: {row['ms']:.4f} ms at "
+            f"causal window={window} bf16: tensor cores {row['ms']:.4f} ms at "
             f"{row['splits']} head splits (by splits: "
             + ", ".join(f"{n} {t:.4f}" for n, t in row["split_ms"].items())
-            + f" ms; host enqueue {row['host_ms']:.4f} ms), plain {row['plain_ms']:.1f} ms, "
-            f"scaled_dot_product_attention backward {row['library_ms']:.4f} "
-            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
-            f"{row['bytes_ms']:.4f} ms)")
+            + f" ms; host enqueue {row['host_ms']:.4f} ms), FMA form "
+            f"{row['fma_ms']:.4f} ms at {row['fma_splits']} splits, plain "
+            f"{row['plain_ms']:.1f} ms, scaled_dot_product_attention backward "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}; bytes {row['bytes_ms']:.4f} ms)")
         rows.append(row)
-        del q, k, v, dout, out, lse, qt, kt, vt, o, dot
+        del q, k, v, dout, out, lse, qt, kt, vt, o, dot, fma_in
     torch.cuda.synchronize()
     return rows
 

@@ -54,14 +54,13 @@
 //    D 256 (194 KB of tiles).
 // Both skip the key tiles that the mask empties for every row of the q
 // tile (tiles::tile_range, exact; flash_tiles.cuh).
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -275,11 +274,13 @@ __global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int kBQ = tiles::kTcBQ;  // q rows per CTA: 64 a consumer warpgroup
 constexpr int kStages = tiles::kTcStages;  // K/V ring depth
 constexpr int kConsumers = 2;  // warpgroups of 64 q rows
 constexpr int kThreads = 128 * kConsumers;
-constexpr int kBox = tiles::kTcBox;  // bf16 columns per TMA box (128 bytes)
+static_assert(kBox == tiles::kTcBox, "a TMA box is the plan's 64 columns");
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -305,192 +306,6 @@ struct Params {
   int q_pos[3], k_pos[3], v_pos[3];  // tensor-map coordinate of (h, s, b)
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// spin until the phase of parity `parity` of the barrier has completed; a
-// wait that outlasts any tile by orders of magnitude traps (a launch
-// error) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-// one TMA box of the 4-D map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         const int (&c)[4], uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c[0]), "r"(c[1]), "r"(c[2]),
-      "r"(c[3]), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// the coordinates of column block col of row s of head h, batch b
-__device__ __forceinline__ void coords(int (&c)[4], const int (&pos)[3], int col,
-                                       int h, int s, int b) {
-  c[0] = col;
-  c[pos[0]] = h;
-  c[pos[1]] = s;
-  c[pos[2]] = b;
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (all in 16-byte units)
-__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
-  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
-  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
-  d |= static_cast<uint64_t>(1) << 62;  // SWIZZLE_128B
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving uses of wgmma operands across the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d (64 x 128 float32, the accumulator fragment) (+)= A (64 x 16 bf16,
-// shared memory, K-major) * B (16 x 128, shared memory, K-major); d is
-// overwritten when scale_d is 0
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
-                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64 x 64 float32) (+)= A (64 x 16 bf16, shared memory, K-major) * B
-// (16 x 64, shared memory, K-major); d is overwritten when scale_d is 0
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
-                                             uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-template <int BK>
-__device__ __forceinline__ void wgmma_ss(float (&d)[BK / 2], uint64_t desc_a,
-                                         uint64_t desc_b, int scale_d) {
-  if constexpr (BK == 128) {
-    wgmma_ss_n128(d, desc_a, desc_b, scale_d);
-  } else {
-    wgmma_ss_n64(d, desc_a, desc_b, scale_d);
-  }
-}
-
-// d[kOff, kOff + 64) (64 x 128 float32 of a wider accumulator) += A (64 x
-// 16 bf16, registers) * B (16 x 128 bf16, shared memory, MN-major)
-template <int kOff, int N>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  static_assert(kOff + 64 <= N, "accumulator slice out of range");
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[kOff + 0]), "+f"(d[kOff + 1]), "+f"(d[kOff + 2]), "+f"(d[kOff + 3]), "+f"(d[kOff + 4]), "+f"(d[kOff + 5]), "+f"(d[kOff + 6]), "+f"(d[kOff + 7]),
-        "+f"(d[kOff + 8]), "+f"(d[kOff + 9]), "+f"(d[kOff + 10]), "+f"(d[kOff + 11]), "+f"(d[kOff + 12]), "+f"(d[kOff + 13]), "+f"(d[kOff + 14]), "+f"(d[kOff + 15]),
-        "+f"(d[kOff + 16]), "+f"(d[kOff + 17]), "+f"(d[kOff + 18]), "+f"(d[kOff + 19]), "+f"(d[kOff + 20]), "+f"(d[kOff + 21]), "+f"(d[kOff + 22]), "+f"(d[kOff + 23]),
-        "+f"(d[kOff + 24]), "+f"(d[kOff + 25]), "+f"(d[kOff + 26]), "+f"(d[kOff + 27]), "+f"(d[kOff + 28]), "+f"(d[kOff + 29]), "+f"(d[kOff + 30]), "+f"(d[kOff + 31]),
-        "+f"(d[kOff + 32]), "+f"(d[kOff + 33]), "+f"(d[kOff + 34]), "+f"(d[kOff + 35]), "+f"(d[kOff + 36]), "+f"(d[kOff + 37]), "+f"(d[kOff + 38]), "+f"(d[kOff + 39]),
-        "+f"(d[kOff + 40]), "+f"(d[kOff + 41]), "+f"(d[kOff + 42]), "+f"(d[kOff + 43]), "+f"(d[kOff + 44]), "+f"(d[kOff + 45]), "+f"(d[kOff + 46]), "+f"(d[kOff + 47]),
-        "+f"(d[kOff + 48]), "+f"(d[kOff + 49]), "+f"(d[kOff + 50]), "+f"(d[kOff + 51]), "+f"(d[kOff + 52]), "+f"(d[kOff + 53]), "+f"(d[kOff + 54]), "+f"(d[kOff + 55]),
-        "+f"(d[kOff + 56]), "+f"(d[kOff + 57]), "+f"(d[kOff + 58]), "+f"(d[kOff + 59]), "+f"(d[kOff + 60]), "+f"(d[kOff + 61]), "+f"(d[kOff + 62]), "+f"(d[kOff + 63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 64 float32) += A (64 x 16 bf16, registers) * B (16 x 64 bf16,
-// shared memory, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
 // O (64 x D float32) += P (64 x 16 keys, registers) * v (16 keys x D, the
 // MN-major K/V stage at `vt`, its 64-column blocks BK * 128 bytes apart);
 // D 256 takes two n128 halves
@@ -498,12 +313,10 @@ template <int D, int BK>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
                                          const uint8_t* vt) {
   if constexpr (D == 256) {
-    wgmma_rs_n128<0>(d, a, make_desc(vt, BK * 128, 1024));
-    wgmma_rs_n128<64>(d, a, make_desc(vt + 2 * BK * 128, BK * 128, 1024));
-  } else if constexpr (D == 128) {
-    wgmma_rs_n128<0>(d, a, make_desc(vt, BK * 128, 1024));
+    wgmma_rs<128, 0>(d, a, make_desc(vt, BK * 128, 1024));
+    wgmma_rs<128, 64>(d, a, make_desc(vt + 2 * BK * 128, BK * 128, 1024));
   } else {
-    wgmma_rs_n64(d, a, make_desc(vt, BK * 128, 1024));
+    wgmma_rs<D>(d, a, make_desc(vt, BK * 128, 1024));
   }
 }
 
@@ -520,9 +333,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, bar_k[kStages], bar_v[kStages],
       bar_empty[kStages];
-  uint8_t* base = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* Qs = base;
+  uint8_t* Qs = align1024(smem_raw);
   uint8_t* Ks = Qs + L::kQ;
   uint8_t* Vs = Ks + kStages * L::kKV;
 
@@ -547,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(&bar_v[s], 1);
       mbar_init(&bar_empty[s], 128 * kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -731,67 +542,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---- host: tensor maps and the launch ----
-
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver library the process already holds
-EncodeFn encode_fn() {
-  static EncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib != nullptr)
-      fn = reinterpret_cast<EncodeFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// The 4-D map of a (B, S, heads, D) bf16 tensor with element strides
-// (sb, ss, sh): axis 0 is D, axes 1-3 are (heads, S, B) ordered by stride
-// (extent-1 axes last), which `pos` records for the kernel's coordinates.
-// Boxes of 64 columns x `rows` rows, 128-byte swizzle, zero fill past the
-// edges.
-bool make_map(CUtensorMap* map, int (&pos)[3], const void* ptr, int D,
-              int heads, int S, int B, long long sh, long long ss,
-              long long sb, int rows) {
-  const EncodeFn fn = encode_fn();
-  if (fn == nullptr) return false;
-  long long ext[3] = {heads, S, B}, str[3] = {sh, ss, sb};
-  int order[3] = {0, 1, 2};
-  auto key = [&](int i) {  // extent-1 axes sort last
-    return ext[i] == 1 ? (1LL << 62) : str[i];
-  };
-  for (int i = 0; i < 3; ++i)
-    for (int j = i + 1; j < 3; ++j)
-      if (key(order[j]) < key(order[i])) {
-        const int t = order[i];
-        order[i] = order[j];
-        order[j] = t;
-      }
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), 1, 1, 1};
-  cuuint64_t strides[3];
-  cuuint32_t box[4] = {kBox, 1, 1, 1};
-  long long span = static_cast<long long>(D);  // elements under the axis
-  for (int i = 0; i < 3; ++i) {
-    const int ax = order[i];
-    pos[ax] = i + 1;
-    dims[i + 1] = static_cast<cuuint64_t>(ext[ax]);
-    long long st = ext[ax] == 1 ? span : str[ax];  // any stride serves
-    strides[i] = static_cast<cuuint64_t>(st * 2);
-    span = st * ext[ax] > span ? st * ext[ax] : span;
-    box[i + 1] = ax == 1 ? rows : 1;
-  }
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+// ---- host: the launch ----
 
 template <int D>
 int launch(const Args& a, cudaStream_t stream) {
@@ -819,15 +570,11 @@ int launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace tc
 
-// TMA reads every row in place: the bases and the strides of the batch,
-// sequence and head axes are multiples of 8 bf16 values (16 bytes)
+// TMA reads every row of q, k and v in place
 bool rows_aligned(const Args& a) {
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) |
-                         reinterpret_cast<uintptr_t>(a.k) |
-                         reinterpret_cast<uintptr_t>(a.v);
-  const long long strides =
-      a.qsb | a.qss | a.qsh | a.ksb | a.kss | a.ksh | a.vsb | a.vss | a.vsh;
-  return ptrs % 16 == 0 && strides % 8 == 0;
+  return hopper::rows_aligned(a.q, a.qsb, a.qss, a.qsh) &&
+         hopper::rows_aligned(a.k, a.ksb, a.kss, a.ksh) &&
+         hopper::rows_aligned(a.v, a.vsb, a.vss, a.vsh);
 }
 
 template <typename T, int D>

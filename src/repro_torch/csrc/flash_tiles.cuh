@@ -1,7 +1,8 @@
 // The tile classification of the flash-attention kernel (flash_attention.cu):
-// which key tiles a q tile visits, and which of those need the mask; and
-// the tensor-core form's plan of a head width (its key tiles, the padded
-// width its TMA boxes and P.v products run at, its shared memory).
+// which key tiles a q tile visits, and which of those need the mask; the
+// tensor-core form's plan of a head width (its key tiles, the padded
+// width its TMA boxes and P.v products run at, its shared memory); and the
+// plan of the backward's tensor-core form (flash_attention_bwd.cu).
 // Valid host C++ as well, so the rules are compiled and checked against a
 // brute-force mask without a GPU (tests/test_torch_kernel_plans_cuh.py).
 //
@@ -100,6 +101,73 @@ FT_HD constexpr bool tc_width_ok(int D) {
   return D >= 16 && D % 16 == 0 && tc_padded(D) <= 256 &&
          (tc_padded(D) == 64 || tc_padded(D) % 128 == 0) &&
          tc_smem_bytes(D) <= 227 * 1024;
+}
+
+// ---- the backward's tensor-core form (flash_attention_bwd.cu) ----
+//
+// Two kernels of two warpgroups (256 threads, one CTA an SM).  The dk/dv
+// kernel holds a tile of keys (K and V loaded once) and walks the q tiles
+// that reach it through a ring of kTcBwdStages (Q, dout, lse, delta)
+// stages; the dq kernel holds a tile of q rows (Q and dout loaded once) and
+// walks the key tiles through a ring of (K, V) stages.  Up to 128 padded
+// columns a warpgroup owns 64 accumulator rows (keys, or q rows) of every
+// column, and the logits' products (S and dP, 64 rows x the other tile's
+// rows) feed the gradient products from registers.  Past 128 (D 256) both
+// warpgroups share 64 rows and split the columns, 128 each (64 rows x 256
+// float32 columns of dk and dv would be 256 registers a thread); each then
+// forms half of the logits' columns and the two halves meet in shared
+// memory as bf16 (P^T and dS^T, or dS), the A operand of the products.
+
+constexpr int kTcBwdStages = 2;  // ring depth of both kernels
+constexpr int kTcBwdSeqPad = 128;  // lse and delta rows: Sq rounded up to it
+
+// do the two warpgroups split the columns (and share the logits)?
+FT_HD constexpr bool tc_bwd_split(int D) { return tc_padded(D) > 128; }
+// keys a dk/dv CTA holds, and q rows a step of it (128 at D 64, where the
+// logits are 64 keys x 128 rows; else 64)
+FT_HD constexpr int tc_bwd_kv_keys(int D) { return tc_bwd_split(D) ? 64 : 128; }
+FT_HD constexpr int tc_bwd_kv_rows(int D) { return tc_padded(D) <= 64 ? 128 : 64; }
+// q rows a dq CTA holds, and keys a step of it
+FT_HD constexpr int tc_bwd_q_rows(int D) { return tc_bwd_split(D) ? 64 : 128; }
+FT_HD constexpr int tc_bwd_q_keys(int D) { return tc_bwd_split(D) ? 64 : 128; }
+// accumulator columns a warpgroup holds (of dk and dv, or of dq)
+FT_HD constexpr int tc_bwd_acc_cols(int D) {
+  return tc_bwd_split(D) ? tc_padded(D) / 2 : tc_padded(D);
+}
+// logit columns (S and dP each) a warpgroup forms a step, of `n` in all
+FT_HD constexpr int tc_bwd_logit_cols(int D, int n) {
+  return tc_bwd_split(D) ? n / 2 : n;
+}
+// float32 registers a thread holds in accumulators and logits (a
+// 64-row fragment of c columns is c / 2 a thread): dk, dv, S^T, dP^T; and
+// dq, S, dP
+FT_HD constexpr int tc_bwd_kv_regs(int D) {
+  return tc_bwd_acc_cols(D) + tc_bwd_logit_cols(D, tc_bwd_kv_rows(D));
+}
+FT_HD constexpr int tc_bwd_q_regs(int D) {
+  return tc_bwd_acc_cols(D) / 2 + tc_bwd_logit_cols(D, tc_bwd_q_keys(D));
+}
+// dynamic shared memory, 1 KB of it alignment: K and V; the stages of Q,
+// dout (bf16) and lse, delta (float32); P^T and dS^T where split
+FT_HD constexpr int tc_bwd_kv_smem(int D) {
+  return 2 * tc_bwd_kv_keys(D) * tc_padded(D) * 2 +
+         kTcBwdStages * (2 * tc_bwd_kv_rows(D) * tc_padded(D) * 2 +
+                         2 * tc_bwd_kv_rows(D) * 4) +
+         (tc_bwd_split(D) ? 2 * 64 * 64 * 2 : 0) + 1024;
+}
+// Q and dout; the stages of K and V; dS where split
+FT_HD constexpr int tc_bwd_q_smem(int D) {
+  return 2 * tc_bwd_q_rows(D) * tc_padded(D) * 2 +
+         kTcBwdStages * 2 * tc_bwd_q_keys(D) * tc_padded(D) * 2 +
+         (tc_bwd_split(D) ? 64 * 64 * 2 : 0) + 1024;
+}
+// a width the backward's form is built for: the forward's, with both
+// kernels' tiles in a block's shared memory and their accumulators and
+// logits in a thread's 255 registers
+FT_HD constexpr bool tc_bwd_width_ok(int D) {
+  return tc_width_ok(D) && tc_bwd_kv_smem(D) <= 227 * 1024 &&
+         tc_bwd_q_smem(D) <= 227 * 1024 && tc_bwd_kv_regs(D) <= 255 &&
+         tc_bwd_q_regs(D) <= 255;
 }
 
 }  // namespace tiles

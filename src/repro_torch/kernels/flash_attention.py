@@ -46,7 +46,13 @@ the output's gradient ``dout``, per (q tile, k tile), in float32:
     dq = ds . k * scale;  dk = ds^T . qf;  dv = p^T . dout
 
 dk and dv sum over the ``H // KVH`` query heads of a KV head in float32 and
-round once.  The autograd boundary is ``layers.attention.FlashAttention``;
+round once.  The kernel has two forms, chosen by the inputs alone
+(``backward_tensor_core_form``): bf16 with head_dim 64, 112, 128 or 256
+and q, k, v, out and dout rows aligned to 16 bytes run on the tensor cores
+(``wgmma``, p and ds rounded to bf16 for the three gradient products, as
+FlashAttention-2/3 and SDPA's backward do; ``backward_tiles``), everything
+else on the float32 FMA units with p and ds in float32.  The autograd
+boundary is ``layers.attention.FlashAttention``;
 nothing else runs the forward kernel under autograd.
 """
 from __future__ import annotations
@@ -69,12 +75,21 @@ TC_BLOCK_Q = 128  # the tensor-core form's tiles: q rows, and keys by head_dim
 # keys a K/V tile by head_dim (``tiles::tc_block_k`` in csrc/flash_tiles.cuh)
 TC_BLOCK_K = {64: 128, 112: 128, 128: 128, 256: 64}
 HEAD_DIMS = (16, 64, 112, 128, 256)  # head widths the kernel is built for
+# the backward's tensor-core form by head_dim (``tiles::tc_bwd_*`` in
+# csrc/flash_tiles.cuh): keys a dk/dv CTA holds and q rows a step of it, q
+# rows a dq CTA holds and keys a step of it
+TC_BWD_TILES = {64: (128, 128, 128, 128), 112: (128, 64, 128, 128),
+                128: (128, 64, 128, 128), 256: (64, 64, 64, 64)}
+TC_BWD_SEQ_PAD = 128  # its lse and delta rows: Sq rounded up to this
 # the backward's dk/dv kernel splits a KV head's query heads where its CTAs
-# would fill fewer waves of the card's SMs than this (``dkdv_splits``).  On
-# an H100 (``chip_smoke.time_flash_bwd``): recurrentgemma-9b's layer (128
-# CTAs) 30.0 ms unsplit, 26.3 at 4 splits; qwen3-4b's (512) 20.3 unsplit,
-# 20.4 at 2
-DKDV_WAVES = 2
+# would not fill one wave of the card's SMs, into enough to fill this many
+# waves (``dkdv_splits``).  On an H100 (``chip_smoke.time_flash_bwd``):
+# the tensor-core form at recurrentgemma-9b's layer (64 CTAs) 2.66 ms
+# unsplit, 1.67 / 1.62 / 1.47 / 1.55 at 2 / 4 / 8 / 16 splits, at
+# qwen3-4b's (256) 1.79 unsplit, 1.85 / 1.89 at 2 / 4; the FMA form at
+# recurrentgemma's (128) 30.0 unsplit, 26.3 at 4, at qwen3-4b's (512) 20.3
+# unsplit, 20.4 at 2
+DKDV_WAVES = 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # kernel launches since the last reset (plain calls not counted)
@@ -109,6 +124,13 @@ def _check_shapes(q, k, v):
                         f"{v.dtype}")
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Can TMA read ``t``'s rows in place?  Base and batch/sequence/head
+    strides aligned to 16 bytes (bf16)."""
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                          for st in t.stride()[:3])
+
+
 def tensor_core_form(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                      ) -> bool:
     """Does the CUDA kernel run these inputs in its tensor-core form?  bf16,
@@ -116,9 +138,7 @@ def tensor_core_form(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     aligned to 16 bytes (what TMA needs to read the rows in place)."""
     if q.dtype != torch.bfloat16 or q.shape[-1] not in TC_BLOCK_K:
         return False
-    return all(t.data_ptr() % 16 == 0 and all(st % 8 == 0
-                                              for st in t.stride()[:3])
-               for t in (q, k, v))
+    return all(_rows_aligned(t) for t in (q, k, v))
 
 
 def kernel_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -319,14 +339,38 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def dkdv_splits(B: int, Sk: int, KVH: int, G: int, D: int, sms: int
+def backward_tensor_core_form(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor) -> bool:
+    """Does the backward kernel run these inputs in its tensor-core form?
+    What ``tensor_core_form`` asks of q, k and v, and of out and dout."""
+    return tensor_core_form(q, k, v) and _rows_aligned(out) and \
+        _rows_aligned(dout)
+
+
+def backward_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, dout: torch.Tensor) -> Dict[str, int]:
+    """The backward kernel's form and tiles for these inputs:
+    ``tensor_cores`` (0 or 1), ``dkdv_keys`` and ``dkdv_rows`` (keys a dk/dv
+    CTA holds, q rows a step of it), ``dq_rows`` and ``dq_keys``."""
+    D = q.shape[-1]
+    tc = backward_tensor_core_form(q, k, v, out, dout)
+    tiles = TC_BWD_TILES[D] if tc else (32 if D > 128 else 64,) * 4
+    return dict(tensor_cores=int(tc), **dict(zip(
+        ("dkdv_keys", "dkdv_rows", "dq_rows", "dq_keys"), tiles)))
+
+
+def dkdv_splits(B: int, Sk: int, KVH: int, G: int, block_k: int, sms: int
                 ) -> int:
     """How many ways the backward kernel splits a KV head's ``G`` query
-    heads for dk and dv: 1 where its (key tile, KV head, batch) CTAs fill
-    ``DKDV_WAVES`` waves of ``sms`` SMs (one CTA an SM), else the least
-    divisor of ``G`` (every split takes as many heads) that fills them, at
-    most ``G``."""
-    base = -(-Sk // (32 if D > 128 else 64)) * KVH * B
+    heads for dk and dv, its CTAs holding ``block_k`` keys each
+    (``backward_tiles``' ``dkdv_keys``): 1 where its (key tile, KV head,
+    batch) CTAs fill a wave of ``sms`` SMs (one CTA an SM), else the least
+    divisor of ``G`` (every split takes as many heads) that fills
+    ``DKDV_WAVES`` waves, at most ``G``."""
+    base = -(-Sk // block_k) * KVH * B
+    if base >= sms:
+        return 1
     need = -(-DKDV_WAVES * sms // base)
     return next(n for n in range(1, G + 1) if G % n == 0 and
                 (n >= need or n == G))
@@ -340,9 +384,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         block_k: int = 512, splits: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the forward's saved ``(q, k, v, out, lse)``
-    and ``dout``.  CUDA tensors launch ``csrc/flash_attention_bwd.cu`` (its
-    own 64 x 64 tiles, 32 x 32 past head_dim 128, whatever
-    ``block_q``/``block_k`` say; ``splits`` the head splits of its dk/dv
+    and ``dout``.  CUDA tensors launch ``csrc/flash_attention_bwd.cu`` in
+    the form and at the tiles ``backward_tiles`` says, whatever
+    ``block_q``/``block_k`` say (``splits`` the head splits of its dk/dv
     kernel, by default ``dkdv_splits`` for the card); CPU
     tensors take ``flash_attention_bwd_plain`` at ``block_q`` x
     ``block_k``.  q, k, v, out and dout need a contiguous last axis (the
@@ -379,23 +423,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     G = H // KVH
+    tiles = backward_tiles(q, k, v, out, dout)
     if splits is None:
-        splits = dkdv_splits(B, Sk, KVH, G, D, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
+        splits = dkdv_splits(B, Sk, KVH, G, tiles["dkdv_keys"],
+                             torch.cuda.get_device_properties(
+                                 dev).multi_processor_count)
     if not 1 <= splits <= G:
         raise ValueError(f"splits must be in 1 .. H // KVH = {G}, got "
                          f"{splits}")
-    delta = torch.empty((B, Sq, H), dtype=torch.float32, device=dev)
+    # delta (B, Sq, H) in the FMA form; lse and delta per head, padded, in
+    # the tensor-core form's stages
+    delta = torch.empty((2, B, H, -(-Sq // TC_BWD_SEQ_PAD) * TC_BWD_SEQ_PAD),
+                        dtype=torch.float32, device=dev)
     part = (torch.empty((2, splits, B, Sk, KVH, D), dtype=torch.float32,
                         device=dev) if splits > 1 else None)
     ptrs = (ctypes.c_void_p * 11)(*[t.data_ptr() for t in (
         q, k, v, out, dout, lse, delta, dq, dk, dv)],
         None if part is None else part.data_ptr())
-    vals = (ctypes.c_longlong * 26)(
+    vals = (ctypes.c_longlong * 27)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], *dout.stride()[:3],
         B, Sq, Sk, H, KVH, D, _DTYPES[q.dtype], int(causal), int(window),
-        int(q_offset), splits)
+        int(q_offset), splits, tiles["tensor_cores"])
     fn = build.function("flash_attention_bwd", "flash_attention_bwd_launch",
                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
                          ctypes.c_void_p])

@@ -53,7 +53,11 @@ FLASH_DTYPES = (torch.float32, torch.bfloat16)
 # its window, stablelm-1.6b, kimi-k2-1t-a32b at head_dim 112), then small
 # float32 and bf16 cases: head_dim 16, queries at an offset over more keys
 # (Sq != Sk), lengths that are no multiple of any tile, q, k, v as strided
-# views of one fused projection, and unaligned rows (kernel 5's FMA form)
+# views of one fused projection, and unaligned rows (the FMA forms of
+# kernel 5 and of the backward); the bf16 cases at head_dim 64 to 256 with
+# aligned rows run the backward's tensor-core form, among them a window
+# edge inside a 64-key tile at a ragged length (head_dim 256, where its
+# warpgroups split the columns) and queries at an offset over more keys
 FLASH_BWD_MODEL_CASES = (
     ("qwen3-4b", 1, 4096, 4096, 32, 8, 128, True, 0, 0, torch.bfloat16,
      "contiguous"),
@@ -81,6 +85,10 @@ FLASH_BWD_SMALL_CASES = (
      torch.bfloat16, "strided"),
     ("D64 unaligned bf16", 1, 300, 300, 4, 2, 64, True, 0, 0,
      torch.bfloat16, "unaligned"),
+    ("D256 window ragged bf16", 1, 300, 300, 4, 1, 256, True, 70, 0,
+     torch.bfloat16, "contiguous"),
+    ("D128 offset window bf16", 1, 200, 456, 4, 1, 128, True, 100, 256,
+     torch.bfloat16, "contiguous"),
 )
 
 
@@ -105,14 +113,17 @@ def flash_bwd_inputs(gen: torch.Generator, case) -> Dict[str, Any]:
 
 
 def check_flash_bwd(label: str, q, k, v, dout, causal: bool, window: int,
-                    q_offset: int) -> Tuple[float, float]:
+                    q_offset: int) -> Dict[str, Any]:
     """Kernel 5's forward with ``return_lse`` on q pre-scaled in its dtype
     (as the layer runs it), then the backward kernel, each against its
     plain version on the same inputs: the lse at kernel 5's own tiles by
     the float32 rule, dq, dk, dv at the reference's chunks by the rule of
     their dtype (bf16: ``grad_bound``), the backward at each of
     ``bwd_splits`` (its dk/dv kernel unsplit, and at the card's head
-    splits).  Returns ``(lse max|d|, gradients' max|d|)``."""
+    splits), each launched twice, the two calls' gradients equal bit for
+    bit.  Returns ``lse_err`` and ``grad_err`` (the largest |d|), the
+    ``splits`` run, the ``launches`` made and the form and tiles the
+    backward took (``flash_attention.backward_tiles``)."""
     from ..kernels import flash_attention as FA
 
     D = q.shape[-1]
@@ -126,24 +137,35 @@ def check_flash_bwd(label: str, q, k, v, dout, causal: bool, window: int,
     lse_err = check_close(f"{label} lse", lse, want_lse)
     want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, scale=scale,
                                         **kw)
+    tiles = FA.backward_tiles(q, k, v, out, dout)
+    splits = bwd_splits(q, k, tiles["dkdv_keys"])
     grad_err = 0.0
-    for splits in bwd_splits(q, k):
+    for n in splits:
         got = FA.flash_attention_bwd(q, k, v, out, lse, dout, scale=scale,
-                                     splits=splits, **kw)
+                                     splits=n, **kw)
+        again = FA.flash_attention_bwd(q, k, v, out, lse, dout, scale=scale,
+                                       splits=n, **kw)
+        for name, g, g2 in zip("qkv", got, again):
+            if not torch.equal(g.view(torch.uint8), g2.view(torch.uint8)):
+                raise AssertionError(f"{label} splits {n} d{name}: two calls "
+                                     "on the same inputs differ")
         grad_err = max([grad_err] + [
-            check_close(f"{label} splits {splits} d{name}", g, w, grad=True)
+            check_close(f"{label} splits {n} d{name}", g, w, grad=True)
             for name, g, w in zip("qkv", got, want)])
-    return lse_err, grad_err
+    return dict(lse_err=lse_err, grad_err=grad_err, splits=splits,
+                launches=2 * len(splits), **tiles)
 
 
-def bwd_splits(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, ...]:
+def bwd_splits(q: torch.Tensor, k: torch.Tensor, block_k: int
+               ) -> Tuple[int, ...]:
     """The head splits ``check_flash_bwd`` runs the backward kernel at: 1,
-    and the card's own (``flash_attention.dkdv_splits``) where it differs."""
+    and the card's own (``flash_attention.dkdv_splits`` for dk/dv CTAs of
+    ``block_k`` keys) where it differs."""
     from ..kernels import flash_attention as FA
 
-    B, _, H, D = q.shape
+    B, _, H, _ = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    auto = FA.dkdv_splits(B, Sk, KVH, H // KVH, D, torch.cuda.
+    auto = FA.dkdv_splits(B, Sk, KVH, H // KVH, block_k, torch.cuda.
                           get_device_properties(q.device).multi_processor_count)
     return (1,) if auto == 1 else (1, auto)
 

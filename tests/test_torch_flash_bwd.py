@@ -27,7 +27,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.layers import attention as JA  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.layers import attention as TA  # noqa: E402
-from repro_torch.testing.attention_checks import bf16_bound  # noqa: E402
+from repro_torch.testing.attention_checks import (  # noqa: E402
+    bf16_bound, unaligned)
 
 torch.set_num_threads(1)
 
@@ -184,3 +185,78 @@ def test_backward_wrapper_takes_plain_on_cpu_and_checks_shapes():
         FA.flash_attention_bwd(q, k, v, out, lse[:, :-1], dout)
     with pytest.raises(ValueError):
         FA.flash_attention_bwd(q, k, v, out[:, :-1], lse, dout)
+
+
+def _form_inputs(layout, D, dtype):
+    """q, k, v, out, dout (zeros, B 1, S 40, H 4 over 2 KV heads) laid out
+    as ``layout`` says."""
+    B, S, H, KVH = 1, 40, 4, 2
+    q, out, dout = (torch.zeros((B, S, H, D), dtype=dtype) for _ in range(3))
+    k, v = (torch.zeros((B, S, KVH, D), dtype=dtype) for _ in range(2))
+    if layout == "strided":  # views of one fused projection
+        q, k, v = torch.zeros((B, S, H + 2 * KVH, D), dtype=dtype).split(
+            [H, KVH, KVH], dim=2)
+    elif layout == "unaligned":
+        q, k, v = unaligned(q), unaligned(k), unaligned(v)
+    elif layout == "out unaligned":
+        out = unaligned(out)
+    elif layout == "dout unaligned":
+        dout = unaligned(dout)
+    elif layout == "dout rows 4 apart":  # a head stride of D + 4 elements
+        dout = torch.zeros((B, S, H, D + 4), dtype=dtype)[..., :D]
+    return q, k, v, out, dout
+
+
+FORM_CASES = [("aligned", D, torch.bfloat16, True)
+              for D in (64, 112, 128, 256)] + [
+    ("aligned", 128, torch.float32, False),
+    ("aligned", 256, torch.float32, False),
+    ("aligned", 16, torch.bfloat16, False),
+    ("strided", 128, torch.bfloat16, True),
+    ("strided", 112, torch.bfloat16, True),
+    ("unaligned", 128, torch.bfloat16, False),
+    ("out unaligned", 256, torch.bfloat16, False),
+    ("dout unaligned", 64, torch.bfloat16, False),
+    ("dout rows 4 apart", 64, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("layout,D,dtype,want", FORM_CASES,
+                         ids=[f"{c[0]}-D{c[1]}-{str(c[2])[6:]}"
+                              for c in FORM_CASES])
+def test_backward_form_by_inputs(layout, D, dtype, want):
+    """The backward's form is chosen by its inputs alone: aligned bf16 at
+    head_dim 64, 112, 128 or 256 (q, k, v as strided views of one fused
+    projection too) take the tensor-core form at ``TC_BWD_TILES``'
+    tiles; float32, head_dim 16, and unaligned rows of q, k, v, out or
+    dout take the FMA form at its own (64, or 32 past head_dim 128).  The
+    kernel refuses a launch whose form the wrapper did not expect, so this
+    predicate is the one the card runs."""
+    q, k, v, out, dout = _form_inputs(layout, D, dtype)
+    assert FA.backward_tensor_core_form(q, k, v, out, dout) == want
+    tiles = FA.backward_tiles(q, k, v, out, dout)
+    assert tiles["tensor_cores"] == int(want)
+    want_tiles = FA.TC_BWD_TILES[D] if want else (32 if D > 128 else 64,) * 4
+    assert (tiles["dkdv_keys"], tiles["dkdv_rows"], tiles["dq_rows"],
+            tiles["dq_keys"]) == want_tiles
+    if layout in ("out unaligned", "dout unaligned", "dout rows 4 apart"):
+        assert FA.tensor_core_form(q, k, v)  # kernel 5 would take them
+
+
+@pytest.mark.parametrize("layer,tensor_cores,want", [
+    ("qwen3-4b", True, 1), ("qwen3-4b", False, 1),
+    ("recurrentgemma-9b", True, 8), ("recurrentgemma-9b", False, 4),
+    ("stablelm-1.6b", True, 1), ("kimi-k2-1t-a32b", True, 4),
+])
+def test_dkdv_splits_at_the_training_layers(layer, tensor_cores, want):
+    """The dk/dv kernel's head splits on a 132-SM card at the training
+    layers of ``attention_checks.FLASH_BWD_MODEL_CASES``: none where its
+    CTAs fill a wave (qwen3-4b: 256 tensor-core CTAs, 512 FMA ones; the
+    splits measured slower there), else enough to fill ``DKDV_WAVES``
+    waves (recurrentgemma-9b's MQA layer: 64 CTAs -> 8 splits, the fastest
+    measured; 128 FMA CTAs -> 4)."""
+    from repro_torch.testing.attention_checks import FLASH_BWD_MODEL_CASES
+    case = next(c for c in FLASH_BWD_MODEL_CASES if c[0] == layer)
+    _, B, Sq, Sk, H, KVH, D, *_ = case
+    keys = FA.TC_BWD_TILES[D][0] if tensor_cores else (32 if D > 128 else 64)
+    assert FA.dkdv_splits(B, Sk, KVH, H // KVH, keys, 132) == want

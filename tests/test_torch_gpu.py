@@ -709,7 +709,9 @@ def test_flash_bwd_kernel_matches_plain(cuda, which):
     4096, D 128, causal, bf16), and the small float32 / bf16 cases of
     ``attention_checks`` (head_dim 16 to 256, Sq != Sk at an offset,
     windows, ragged lengths, strided and unaligned rows); the dk/dv kernel
-    unsplit and at the card's head splits, one backward launch each."""
+    unsplit and at the card's head splits, each launched twice with the
+    same bits, one backward launch a call; aligned bf16 at head_dim 64 to
+    256 in the tensor-core form, the rest in the FMA form."""
     from repro_torch.kernels import flash_attention as KF
     from repro_torch.testing import attention_checks as AC
 
@@ -718,12 +720,15 @@ def test_flash_bwd_kernel_matches_plain(cuda, which):
     cases = (AC.FLASH_BWD_MODEL_CASES[:1] if which == "qwen3-4b"
              else AC.FLASH_BWD_SMALL_CASES)
     for case in cases:
+        _, B, Sq, Sk, H, KVH, D, *_, dtype, layout = case
         before = KF.backward.launches
         kw = AC.flash_bwd_inputs(gen, case)
-        AC.check_flash_bwd(case[0], **kw)
+        res = AC.check_flash_bwd(case[0], **kw)
         torch.cuda.synchronize()
-        assert KF.backward.launches == before + len(
-            AC.bwd_splits(kw["q"], kw["k"]))
+        assert KF.backward.launches == before + res["launches"]
+        assert res["tensor_cores"] == int(
+            dtype == torch.bfloat16 and D in KF.TC_BWD_TILES
+            and layout != "unaligned"), case[0]
 
 
 def test_checkpoint_roundtrip_on_card(cuda, tmp_path):

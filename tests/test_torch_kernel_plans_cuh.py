@@ -20,6 +20,13 @@ fixed-point header:
   wasting 6.7 % of the form's tensor-core work), takes k-steps that cover
   exactly its columns, fits a block's shared memory and has the key tile
   the wrapper's ``kernel_tiles`` reports;
+* the backward's tensor-core plan: at every width the wrapper sends there
+  (64, 112, 128, 256) both kernels fit a block's shared memory, hold at
+  most 255 registers a thread of accumulators and logits, cover exactly
+  the width's columns in 64-column TMA boxes (split over the two
+  warpgroups past 128 columns) and their tiles' rows in logit columns, and
+  run the tiles ``flash_attention.TC_BWD_TILES`` reports; widths the
+  forward's form refuses are refused;
 * the partition (which the wrappers read from the built libraries, through
   ``kernels.scan_plan``) covers every hidden unit exactly once on at most
   one CTA per SM, fits every registered recurrent config at the batch
@@ -93,6 +100,37 @@ int main() {
     const int32_t r[4] = {tiles::tc_padded(D), tiles::tc_block_k(D),
                           tiles::tc_smem_bytes(D), tiles::tc_width_ok(D)};
     fwrite(r, 4, 4, stdout);
+  }
+  return 0;
+}
+"""
+
+BWD_PROGRAM = r"""
+#include <cstdint>
+#include <cstdio>
+
+#include "flash_tiles.cuh"
+
+// in: n, then n head widths int32
+// out per width: padded, split, acc_cols, kv_keys, kv_rows, kv_logit_cols,
+// q_rows, q_keys, q_logit_cols, kv_regs, q_regs, kv_smem, q_smem, ok,
+// seq_pad, stages (int32)
+int main() {
+  int32_t n;
+  if (fread(&n, 4, 1, stdin) != 1) return 1;
+  for (int i = 0; i < n; ++i) {
+    int32_t D;
+    if (fread(&D, 4, 1, stdin) != 1) return 1;
+    const int32_t r[16] = {
+        tiles::tc_padded(D), tiles::tc_bwd_split(D), tiles::tc_bwd_acc_cols(D),
+        tiles::tc_bwd_kv_keys(D), tiles::tc_bwd_kv_rows(D),
+        tiles::tc_bwd_logit_cols(D, tiles::tc_bwd_kv_rows(D)),
+        tiles::tc_bwd_q_rows(D), tiles::tc_bwd_q_keys(D),
+        tiles::tc_bwd_logit_cols(D, tiles::tc_bwd_q_keys(D)),
+        tiles::tc_bwd_kv_regs(D), tiles::tc_bwd_q_regs(D),
+        tiles::tc_bwd_kv_smem(D), tiles::tc_bwd_q_smem(D),
+        tiles::tc_bwd_width_ok(D), tiles::kTcBwdSeqPad, tiles::kTcBwdStages};
+    fwrite(r, 4, 16, stdout);
   }
   return 0;
 }
@@ -189,6 +227,74 @@ def test_flash_head_width_plan(widths_exe):
     assert abs((128 - 112) / (112 + 128) - 0.0667) < 1e-3
     for D in (8, 100, 264, 320):
         assert not plan[D][3], (D, plan[D])
+
+
+@pytest.fixture(scope="module")
+def bwd_plan(tmp_path_factory):
+    """``{D: {field: value}}`` of the backward's tensor-core plan over the
+    wrapper's widths and a sweep around them."""
+    exe = _compile(tmp_path_factory, "flash_bwd_plan", BWD_PROGRAM)
+    widths = sorted(set(range(16, 321, 16)) | set(FA.TC_BWD_TILES) | {8, 100})
+    out = np.frombuffer(_run(exe, [(D,) for D in widths]),
+                        np.int32).reshape(-1, 16)
+    names = ("padded", "split", "acc_cols", "kv_keys", "kv_rows",
+             "kv_logit_cols", "q_rows", "q_keys", "q_logit_cols", "kv_regs",
+             "q_regs", "kv_smem", "q_smem", "ok", "seq_pad", "stages")
+    return {D: dict(zip(names, (int(v) for v in row)))
+            for D, row in zip(widths, out)}
+
+
+@pytest.mark.parametrize("D", sorted(FA.TC_BWD_TILES))
+def test_flash_bwd_plan_fits_and_covers(bwd_plan, D):
+    """Each width the wrapper sends to the backward's tensor-core form:
+    both kernels in 227 KB of shared memory (K, V and two stages of Q,
+    dout, lse and delta; Q, dout and two stages of K and V; the shared
+    bf16 logits where split), at most 255 registers a thread of
+    accumulators and logits, the width's columns exactly covered by whole
+    64-column boxes and by the two warpgroups' accumulators (each all of
+    them up to 128, half past it), D / 16 k-steps covering D, each step's
+    logit columns covering the other tile's rows, and the tiles
+    ``TC_BWD_TILES`` reports (so the head splits the wrapper picks count
+    the CTAs the kernel launches)."""
+    p = bwd_plan[D]
+    assert p["ok"] and p["stages"] >= 2, p
+    assert p["kv_smem"] <= 227 * 1024 and p["q_smem"] <= 227 * 1024, p
+    assert p["kv_regs"] <= 255 and p["q_regs"] <= 255, p
+    # the counts the registers stand for: dk and dv, S^T and dP^T; dq, S, dP
+    assert p["kv_regs"] == 2 * p["acc_cols"] // 2 + 2 * p["kv_logit_cols"] // 2
+    assert p["q_regs"] == p["acc_cols"] // 2 + 2 * p["q_logit_cols"] // 2
+    padded = p["padded"]
+    assert padded % 64 == 0 and D <= padded < D + 64 and D % 16 == 0, p
+    owners = np.zeros(padded, np.int64)
+    for wg in range(2):
+        lo = wg * p["acc_cols"] if p["split"] else 0
+        owners[lo:lo + p["acc_cols"]] += 1
+    assert (owners == (1 if p["split"] else 2)).all(), p
+    assert p["split"] == (padded > 128)
+    for rows, cols in ((p["kv_rows"], p["kv_logit_cols"]),
+                       (p["q_keys"], p["q_logit_cols"])):
+        assert cols * (2 if p["split"] else 1) == rows and cols % 16 == 0, p
+    # a warpgroup's 64 accumulator rows: its own 64 keys / q rows, or the
+    # tile's 64 shared by both where split
+    assert p["kv_keys"] == p["q_rows"] == (64 if p["split"] else 128), p
+    assert (p["kv_keys"], p["kv_rows"], p["q_rows"], p["q_keys"]) == \
+        FA.TC_BWD_TILES[D]
+    assert p["seq_pad"] == FA.TC_BWD_SEQ_PAD
+    assert p["seq_pad"] % max(p["kv_rows"], p["q_rows"]) == 0
+    smem = (2 * p["kv_keys"] * padded * 2 + p["stages"] * (
+        2 * p["kv_rows"] * padded * 2 + 2 * p["kv_rows"] * 4)
+        + (2 * 64 * 64 * 2 if p["split"] else 0) + 1024)
+    assert p["kv_smem"] == smem, p
+
+
+def test_flash_bwd_plan_refuses_other_widths(bwd_plan):
+    """Widths off the forward's tensor-core grid are not the backward's
+    either, and those it takes are the forward's."""
+    for D, p in bwd_plan.items():
+        if p["ok"]:
+            assert D % 16 == 0 and p["padded"] <= 256, (D, p)
+    for D in (8, 100):
+        assert not bwd_plan[D]["ok"], D
 
 
 @pytest.mark.parametrize("tiling", sorted(TILINGS))
